@@ -1,4 +1,4 @@
-"""admp_tpu: a TPU-native differentiable multipolar polarizable force-field engine.
+"""admp_tpu: a differentiable multipolar polarizable force-field engine.
 
 Built from scratch in JAX/XLA with the capabilities of the reference ADMP
 calculator (Roy-Kid/ADMP): multipolar electrostatic PME up to quadrupole with

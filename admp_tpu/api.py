@@ -71,8 +71,11 @@ class ADMPDispGenerator:
         covalent_map = build_covalent_map_from_bonds(
             system.bonds, system.n_atoms, 6
         )
+        # the reference-compatible front end keeps the reference's
+        # heuristic grid (energies comparable with the reference's)
         force_lr = ADMPDispPmeForce(
-            jnp.asarray(system.box), covalent_map, rc, self.ethresh, self.pmax
+            jnp.asarray(system.box), covalent_map, rc, self.ethresh, self.pmax,
+            fft_friendly_grid=False,
         )
         self.disp_pme_force = force_lr
         pot_lr = force_lr.get_energy
@@ -145,6 +148,7 @@ class ADMPPmeGenerator:
             self.ethresh,
             self.lmax,
             self.lpol,
+            fft_friendly_grid=False,
         )
         self.pme_force = pme_force
 

@@ -38,7 +38,7 @@ def _pdb_data_from_topology(topology) -> PDBData:
 
     Bond connectivity comes from the topology (CONECT records, residue
     templates, or however the user built it) — this is what the native PDB
-    path cannot see beyond template matching (VERDICT round 1, missing #2).
+    path cannot see beyond template matching.
     """
     names, res_names, res_seqs = [], [], []
     index_of = {}

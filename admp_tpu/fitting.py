@@ -65,7 +65,7 @@ def energy_force_loss(potential_fn, energy_weight=1.0, force_weight=0.1):
             # stacked form: validate it IS one (5 arrays, common leading
             # config axis) rather than a single legacy entry tuple —
             # routing an entry into vmap fails with an opaque shape error
-            # deep inside the potential (ADVICE r4)
+            # deep inside the potential
             if len(batch) != 5:
                 raise ValueError(
                     "stacked batch must be (positions, box, pairs, "

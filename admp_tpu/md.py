@@ -1,7 +1,7 @@
 """Minimal on-device molecular dynamics: velocity-Verlet NVE inside lax.scan.
 
 The reference provides no integrator (users bring OpenMM/i-PI); this module
-closes the loop for production MD on TPU: the whole trajectory segment runs as
+closes the loop for production MD on the device: the whole trajectory segment runs as
 one compiled scan — positions, velocities, forces, and the induced-dipole warm
 start never leave the device between steps.
 

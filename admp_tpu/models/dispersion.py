@@ -1,6 +1,6 @@
 """Dispersion PME (C6/C8/C10) driver.
 
-Feature parity with reference: admp/disp_pme.py:20-123, with the same TPU-first
+Feature parity with reference: admp/disp_pme.py:20-123, with the same
 rework as models/pme.py: fixed-shape masked pair lists and one jit boundary.
 The three reciprocal grids (one per even power) reuse the shared spread/FFT
 engine of ops/reciprocal.py with the gamma point *included*
@@ -137,10 +137,6 @@ class ADMPDispPmeForce:
             kappa, k1, k2, k3 = setup_ewald_parameters_fft(rc, grid_ethresh, box)
         else:
             kappa, k1, k2, k3 = setup_ewald_parameters(rc, grid_ethresh, box)
-        if config.resolve_lane_align():
-            from admp_tpu.ops.ewald import lane_align_k3
-
-            k3 = lane_align_k3(k3)
         self.kappa = kappa
         self.K1, self.K2, self.K3 = k1, k2, k3
         self.pme_order = 6
@@ -191,7 +187,6 @@ class ADMPDispPmeForce:
             cks, self.kappa, grid,
             static_box=getattr(self, "_static_box", None),
             spread_order=cfg.disp_spread_order,
-            spread_method=cfg.spread_method,
         )
         covalent_map = self.covalent_map
         kappa, pmax = self.kappa, self.pmax

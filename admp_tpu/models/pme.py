@@ -1,7 +1,7 @@
 """Multipolar electrostatic PME with optional Thole polarization.
 
 Feature parity with reference: admp/pme.py (ADMPPmeForce at pme.py:30-143,
-energy_pme at pme.py:176-254, pme_real at pme.py:628-729), redesigned TPU-first:
+energy_pme at pme.py:176-254, pme_real at pme.py:628-729), redesigned for XLA:
 
 * One jit boundary around the *entire* energy/force step (frames, real space,
   spreading, FFT, self terms, SCF). The reference deliberately leaves pme_real
@@ -23,7 +23,6 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from admp_tpu.utils.linalg3 import inv3x3
 
 from admp_tpu.ops import realspace
 from admp_tpu.ops.ewald import setup_ewald_parameters
@@ -39,23 +38,6 @@ from admp_tpu.scf.solver import make_induced_dipole_solver
 from admp_tpu.settings import EngineConfig, SCFConfig, maybe_jit
 from admp_tpu.utils.accmath import compensated_sum, masked_compensated_sum
 from admp_tpu.utils.constants import DIELECTRIC
-
-
-def _use_pair_kernel(pair_kernel: str, dtype) -> bool:
-    """Eligibility of the fused Pallas pair kernel (ops/pallas/pairs.py):
-    f32 passes; 'auto' engages it on TPU only. The kernel is first-order
-    differentiable — functions the implicit-SCF exact adjoint re-
-    differentiates (the solver's field_fn) must pass pair_kernel='xla'
-    (_build_polarizable does)."""
-    if pair_kernel == "xla" or dtype != jnp.float32:
-        return False
-    if pair_kernel not in ("auto", "pallas", "interpret"):
-        raise ValueError(f"unknown pair_kernel {pair_kernel!r}")
-    from admp_tpu.ops.pallas.pairs import pallas_pairs_available
-
-    if not pallas_pairs_available():
-        return False
-    return pair_kernel != "auto" or jax.default_backend() == "tpu"
 
 
 def pme_real_energy(
@@ -75,7 +57,6 @@ def pme_real_energy(
     pair_chunk: int | None = None,
     exclude_topological: bool = False,
     compensated: bool = False,
-    pair_kernel: str = "auto",
     pairs_i_sorted: bool = False,
 ):
     """Real-space multipolar Ewald energy over a padded pair list.
@@ -85,8 +66,7 @@ def pme_real_energy(
     ops/realspace.py. ``pairs`` may contain padding (i >= j) which is masked.
 
     ``pair_chunk``: process the pair list in fixed-size blocks via lax.map —
-    bounds peak memory for very large systems (per-pair intermediates like the
-    quasi-internal frames tile-pad badly on TPU at tens of millions of pairs).
+    bounds peak memory for very large systems (tens of millions of pairs).
 
     ``exclude_topological``: additionally mask out pairs with nonzero
     topological distance — used by the high-accuracy mode, which re-evaluates
@@ -110,7 +90,7 @@ def pme_real_energy(
             lambda blk: pme_real_energy(
                 positions, box, blk, q_global, u_ind_harm, pol, tholes,
                 m_scales, p_scales, covalent_map, kappa, lmax, lpol,
-                None, exclude_topological, compensated, pair_kernel,
+                None, exclude_topological, compensated,
                 pairs_i_sorted,  # chunks are contiguous slices: still sorted
             ),
             blocks,
@@ -132,63 +112,8 @@ def pme_real_energy(
     if exclude_topological:
         mask = mask & (nbond == 0)
 
-    lpol_kernel_ok = not lpol or (
-        u_ind_harm is not None
-        and u_ind_harm.dtype == positions.dtype
-        and pol is not None
-        and tholes is not None
-    )
-    if lpol_kernel_ok and _use_pair_kernel(pair_kernel, positions.dtype):
-        # fused Pallas pair pass: block transpose + PBC wrap + QI frame +
-        # rotations + coefficients + contraction in one VMEM-resident
-        # program, in-kernel vjp backward (ops/pallas/pairs.py). Only the
-        # row gathers and the exclusion lookup stay in XLA: a gather whose
-        # rows feed column slices/wrap math lowers ~5x slower than one
-        # consumed whole (examples/realsplit2_98k_tpu.out), so the gathered
-        # tables go to the kernel untouched and box gradients (virial) flow
-        # through SMEM-scalar cotangents accumulated per program.
-        from admp_tpu.ops.pallas.pairs import (
-            pair_perm_energies,
-            table_width,
-        )
-
-        dtype = positions.dtype
-        cols = [positions, q_global[:, : (lmax + 1) ** 2]]
-        scl_rows = [mscale.astype(dtype), mask.astype(dtype)]
-        if lpol:
-            cols += [
-                u_ind_harm,
-                pol.astype(dtype)[:, None],
-                tholes.astype(dtype)[:, None],
-            ]
-            scl_rows.append(
-                scale_for_distance(p_scales, nbond).astype(dtype)
-            )
-        packed = jnp.concatenate(cols, axis=1)
-        g_i = (realspace.take_rows_sorted(packed, i) if pairs_i_sorted
-               else packed[i])
-        g_j = packed[j]
-        scl = jnp.stack(scl_rows)
-        scal = jnp.concatenate(
-            [
-                jnp.asarray(kappa, dtype).reshape(1),
-                box.astype(dtype).reshape(9),
-                inv3x3(box.astype(dtype)).reshape(9),
-            ]
-        )
-        assert g_i.shape[1] == table_width(lmax, lpol)
-        e = pair_perm_energies(
-            g_i, g_j, scl, scal, lmax,
-            interpret=(pair_kernel == "interpret"),
-            kind="pol" if lpol else "perm",
-        )
-        if compensated:
-            return compensated_sum(e)
-        return jnp.sum(e)
-
     # component (SoA) pipeline: every per-pair intermediate is a flat (C,)
-    # vector — the (C, 3, 3)/(C, 9) AoS forms tile-pad up to ~40x on TPU and
-    # were the dominant real-space cost (ROADMAP round-2 continuation)
+    # vector, never a (C, 3, 3)/(C, 9) AoS array
     r, qi_i, qi_j, ui, uj = realspace.qi_pair_components(
         positions, box, q_global, i, j, mask, lmax,
         u_ind_harm if lpol else None, i_sorted=pairs_i_sorted,
@@ -221,7 +146,6 @@ def pme_real_uu_energy(
     covalent_map,
     kappa,
     pair_chunk: int | None = None,
-    pair_kernel: str = "auto",
     pairs_i_sorted: bool = False,
 ):
     """Real-space induced-induced energy only: u^T A_real u / 2 terms.
@@ -238,7 +162,7 @@ def pme_real_uu_energy(
         energies = jax.lax.map(
             lambda blk: pme_real_uu_energy(
                 positions, box, blk, u_ind_harm, pol, tholes, p_scales,
-                covalent_map, kappa, None, pair_kernel, pairs_i_sorted,
+                covalent_map, kappa, None, pairs_i_sorted,
             ),
             blocks,
         )
@@ -248,54 +172,6 @@ def pme_real_uu_energy(
     mask = raw_i < raw_j
     i = jnp.minimum(raw_i, n - 1)
     j = jnp.minimum(raw_j, n - 1)
-
-    if (
-        u_ind_harm.dtype == positions.dtype
-        and _use_pair_kernel(pair_kernel, positions.dtype)
-    ):
-        # fused matvec pair pass (ops/pallas/pairs.py kind='uu'): this runs
-        # every PCG iteration of the forward solve AND every implicit-
-        # adjoint iteration; the matvec is only ever differentiated once
-        # (grad of the u-quadratic energy), so the first-order-only kernel
-        # is safe in both SCF gradient modes
-        from admp_tpu.ops.exclusions import (
-            lookup_topology_distance as _lookup,
-            scale_for_distance as _scale,
-        )
-        from admp_tpu.ops.pallas.pairs import pair_perm_energies
-
-        dtype = positions.dtype
-        packed = jnp.concatenate(
-            [
-                positions,
-                u_ind_harm,
-                pol.astype(dtype)[:, None],
-                tholes.astype(dtype)[:, None],
-            ],
-            axis=1,
-        )
-        g_i = (realspace.take_rows_sorted(packed, i) if pairs_i_sorted
-               else packed[i])
-        g_j = packed[j]
-        nbond_k = _lookup(covalent_map, i, j)
-        scl = jnp.stack(
-            [
-                _scale(p_scales, nbond_k).astype(dtype),
-                mask.astype(dtype),
-            ]
-        )
-        scal = jnp.concatenate(
-            [
-                jnp.asarray(kappa, dtype).reshape(1),
-                box.astype(dtype).reshape(9),
-                inv3x3(box.astype(dtype)).reshape(9),
-            ]
-        )
-        e = pair_perm_energies(
-            g_i, g_j, scl, scal, 1,
-            interpret=(pair_kernel == "interpret"), kind="uu",
-        )
-        return jnp.sum(e)
 
     # The uu contraction only needs the radial projection: in the QI frame
     #   e = m0 uj_z ui_z + m1 (uj_x ui_x + uj_y ui_y)
@@ -350,7 +226,6 @@ def make_induced_quadratic_energy(covalent_map, kappa, grid_shape, config,
         grid_shape=grid_shape,
         lmax=1,
         prefactor=DIELECTRIC,
-        spread_method=config.spread_method,
         spread_precision=config.spread_precision,
         recip_precision=config.recip_precision,
         compensated=config.compensated_sums,
@@ -359,12 +234,11 @@ def make_induced_quadratic_energy(covalent_map, kappa, grid_shape, config,
     )
 
     def energy_uu(positions, box, pairs, u_ind_cart, pol, tholes, p_scales):
-        pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None  # unchunked to 4M pairs: lax.map chunking measured 1.5x slower at 1.6M (examples/realspace_98k_tpu.out)
+        pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None
         u_harm = cart_dipole_to_harm(u_ind_cart)
         e = pme_real_uu_energy(
             positions, box, pairs, u_harm, pol, tholes, p_scales,
-            covalent_map, kappa, pair_chunk, config.pair_kernel,
-            config.pairs_i_sorted,
+            covalent_map, kappa, pair_chunk, config.pairs_i_sorted,
         )
         q_u = jnp.concatenate(
             [jnp.zeros((u_harm.shape[0], 1), u_harm.dtype), u_harm], axis=-1
@@ -501,7 +375,6 @@ def energy_pme(
             pair_chunk,
             exclude_topological=excl64,
             compensated=compensated,
-            pair_kernel=config.pair_kernel,
             pairs_i_sorted=config.pairs_i_sorted,
         )
     if excl64:
@@ -572,7 +445,6 @@ def energy_pme(
                 lpol,
                 None,
                 compensated=False,
-                pair_kernel=config.pair_kernel,
                 # nonzero-compaction preserves order: near_pairs inherit the
                 # main list's i-sortedness
                 pairs_i_sorted=config.pairs_i_sorted,
@@ -597,11 +469,6 @@ def energy_pme(
         recip_u = u_harm if recip_f64 else u_harm.astype(work_dtype)
         e_recip = pme_recip_fn(positions, box, recip_q[:, :1], recip_u)
     else:
-        # NOTE: a split-mesh variant for lmax>0 lpol (spread q_global and
-        # u on separate meshes, hoping XLA CSE shares the q_global spread
-        # with the SCF right-hand side) measured SLOWER: 39.4 -> 44.9 ms on
-        # the polarizable bench — the sharing does not materialize and the
-        # extra dipole FFT is pure overhead. Keep the summed q_tot spread.
         recip_q = q_tot if recip_f64 else q_tot.astype(work_dtype)
         e_recip = pme_recip_fn(positions, box, recip_q)
     e_self = pme_self_energy(q_tot, kappa, lmax_eff)
@@ -638,16 +505,14 @@ class ADMPPmeForce:
         lpol=False,
         scf_config: SCFConfig | None = None,
         fft_friendly_grid: bool | str = "auto",
-        spread_method: str = "auto",
         spread_precision: str | None = None,
         config: EngineConfig | None = None,
     ):
         # Unified configuration: prefer `config`; the individual kwargs are
-        # kept as a compatibility layer folded into it (VERDICT round 1 §9).
+        # kept as a compatibility layer folded into it.
         if config is None:
             config = EngineConfig(
                 fft_friendly_grid=fft_friendly_grid,
-                spread_method=spread_method,
                 spread_precision=spread_precision,
                 scf=scf_config or SCFConfig(),
             )
@@ -658,7 +523,7 @@ class ADMPPmeForce:
         # pairs_i_sorted='auto': resolve to the SAFE unsorted path now; a
         # NeighborList passed at the call surface re-resolves it to the
         # list's own i_sorted contract (_accept_pairs) — provenance is what
-        # makes the sorted-segment backward safe (VERDICT r4 item 3)
+        # makes the sorted-segment backward safe
         self._pairs_auto = config.pairs_i_sorted == "auto"
         if self._pairs_auto:
             import dataclasses as _dc
@@ -677,14 +542,6 @@ class ADMPPmeForce:
             kappa, k1, k2, k3 = setup_ewald_parameters_fft(rc, ethresh, box)
         else:
             kappa, k1, k2, k3 = setup_ewald_parameters(rc, ethresh, box)
-        if config.resolve_lane_align():
-            # K3 -> next multiple of 128 within a 4/3 stretch: the spread
-            # adjoint then rides the row-gather path (measured 64.2 -> ~39 ms
-            # on the default-config exact-adjoint polarizable step — the
-            # round-4 VERDICT grid footgun)
-            from admp_tpu.ops.ewald import lane_align_k3
-
-            k3 = lane_align_k3(k3)
         if config.recip_precision == "ds":
             # the DS engine's radix-2 FFT needs power-of-two grids; round the
             # heuristic UP (never loses accuracy class)
@@ -711,7 +568,6 @@ class ADMPPmeForce:
         self._static_box = jnp.asarray(box) if config.cache_influence else None
         self.lpol = bool(lpol)
         self.scf_config = config.scf
-        self.spread_method = config.spread_method
         self.spread_precision = config.spread_precision
         self.U_ind = jnp.zeros((self.n_atoms, 3))
         # carried adjoint warm-start state (exact_adjoint +
@@ -760,7 +616,6 @@ class ADMPPmeForce:
             grid_shape=(self.K1, self.K2, self.K3),
             lmax=self.lmax,
             prefactor=DIELECTRIC,
-            spread_method=getattr(self, "spread_method", "scatter"),
             spread_precision=getattr(self, "spread_precision", None),
             recip_precision=cfg.recip_precision,
             compensated=cfg.compensated_sums,
@@ -784,7 +639,7 @@ class ADMPPmeForce:
         config, excl_pairs = self.config, self._excl_pairs
 
         def get_energy(positions, box, pairs, Q_local, mScales):
-            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None  # unchunked to 4M pairs: lax.map chunking measured 1.5x slower at 1.6M (examples/realspace_98k_tpu.out)
+            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None
             return energy_pme(
                 positions, box, pairs, Q_local, None, None, None,
                 mScales, None, None, covalent_map, axis_types, axis_indices,
@@ -792,7 +647,7 @@ class ADMPPmeForce:
             )
 
         def get_metrics(positions, box, pairs, Q_local, mScales):
-            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None  # unchunked to 4M pairs: lax.map chunking measured 1.5x slower at 1.6M (examples/realspace_98k_tpu.out)
+            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None
             total, terms = energy_pme(
                 positions, box, pairs, Q_local, None, None, None,
                 mScales, None, None, covalent_map, axis_types, axis_indices,
@@ -847,7 +702,7 @@ class ADMPPmeForce:
 
         def energy_fn(positions, box, pairs, Q_local, U_ind, pol, tholes,
                       mScales, pScales, dScales):
-            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None  # unchunked to 4M pairs: lax.map chunking measured 1.5x slower at 1.6M (examples/realspace_98k_tpu.out)
+            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None
             return energy_pme(
                 positions, box, pairs, Q_local, U_ind, pol, tholes,
                 mScales, pScales, dScales, covalent_map, axis_types,
@@ -856,12 +711,8 @@ class ADMPPmeForce:
             )
 
         self.energy_fn = energy_fn
-        # The exact-adjoint solve takes jax.vjp OF this field function
-        # (solver.py solve_bwd), i.e. differentiates the energy's gradient
-        # graph a second time. The pair kernels support this: their
-        # custom-vjp backward is itself a custom_vjp whose backward is the
-        # in-kernel Hessian-vector program (ops/pallas/pairs._pair_bwd_op),
-        # so arbitrary-order pulls stay on Pallas.
+        # the exact-adjoint solve takes jax.vjp OF this field function
+        # (solver.py solve_bwd): the energy is differentiated twice
         self.grad_U_fn = jax.grad(energy_fn, argnums=4)
 
         def field_fn(u, inputs):
@@ -889,7 +740,7 @@ class ADMPPmeForce:
             )
         div = max(int(scf.matvec_grid_div), 1)
 
-        def _reduce_k(k, keep_aligned=False):
+        def _reduce_k(k):
             if div == 1:
                 # documented contract: div=1 = the engine's full-accuracy
                 # mesh, EXACTLY — the sharded solver (parallel/sharded.py
@@ -899,19 +750,11 @@ class ADMPPmeForce:
                 # The old max(..., 32) floor silently INFLATED small test
                 # grids (16^3 -> 32^3), changing the operator.
                 return k
-            if keep_aligned and k % 128 == 0:
-                # lane-aligned rows (K3 % 128 == 0) ride the row-gather
-                # spread adjoint (ops/pallas/spread._row_gather_impl);
-                # halving below 128 would forfeit it for a minor FLOP saving
-                return k
             kd = max(-(-k // div), 32)
-            kd = kd + (kd % 2)  # keep even (Pallas/rfft-friendly)
+            kd = kd + (kd % 2)  # keep even (rfft-friendly)
             return min(kd, k)  # a "reduced" mesh must never exceed the engine's
 
-        mv_grid = (
-            _reduce_k(self.K1), _reduce_k(self.K2),
-            _reduce_k(self.K3, keep_aligned=True),
-        )
+        mv_grid = (_reduce_k(self.K1), _reduce_k(self.K2), _reduce_k(self.K3))
         energy_uu = make_induced_quadratic_energy(
             covalent_map, kappa, mv_grid, mv_config,
             static_box=getattr(self, "_static_box", None),
@@ -924,23 +767,13 @@ class ADMPPmeForce:
                 inputs["pol"], inputs["tholes"], inputs["pScales"],
             )
 
-        # NOTE (measured negative, round 3): an explicit two-phase "prepared"
-        # matvec — position-dependent pair coefficients, spline tables, and
-        # scatter indices hoisted into a cache built once per solve — measured
-        # SLOWER end-to-end (FH step 24.4 -> 25.5 ms, adjoint_fixed_iters=3
-        # step 71.4 -> 85.9 ms, examples/pol_ablation_tpu.out history): XLA
-        # already CSEs the matvec's invariant subgraphs against the identical
-        # computations in the surrounding energy/field graph, so the explicit
-        # cache only added un-shared duplicate preparation. The plain
-        # quadratic-energy gradient stays.
         # external_r0: the warm-start residual r0 = -field(u0) is built in
         # energy_and_aux's OWN jit scope rather than inside the solver's
         # custom_vjp, so its u-independent subgraphs (local frames, the
         # local->global multipole rotation, the permanent spline-weight
         # pipeline) CSE against the identical work in the final energy
         # evaluation — across the opaque custom_vjp boundary XLA could
-        # never share them (the round-3 split-mesh negative below was
-        # measured under that boundary).
+        # never share them.
         solver = make_induced_dipole_solver(field_fn, self.scf_config,
                                             matvec_fn=matvec_fn,
                                             external_r0=True)
@@ -958,14 +791,6 @@ class ADMPPmeForce:
             )
         )
 
-        # NOTE (measured negative result, round 2): computing the solution
-        # energy via the quadratic identity E(u*) = E0 + field0.u* + u*.Au*/2
-        # (one linearized eval at u=0 + one cheap matvec, exact regardless of
-        # PCG convergence) is numerically exact but SLOWER end-to-end —
-        # 46 -> 64 ms/step on the polarizable benchmark: the outer position
-        # gradient must differentiate through the inner value_and_grad
-        # (forward-over-reverse second-order pass for d(field0.u*)/dtheta),
-        # which costs more than the plain energy evaluation it replaces.
         def _energy_and_aux_impl(sv, positions, box, pairs, Q_local, pol,
                                  tholes, mScales, pScales, dScales, U_init,
                                  W_init):
@@ -980,8 +805,7 @@ class ADMPPmeForce:
                 # FH mode: the solve contributes no gradient, but the solver
                 # bwd's CONCRETE zero r0-cotangent would still drag a full
                 # field-VJP graph behind -field_fn(u0) (XLA cannot fold
-                # zeros through FFTs/scatters) — measured as a ~2x pol-bench
-                # regression (18.3 -> 38.2 ms). Cut the path explicitly.
+                # zeros through FFTs/scatters). Cut the path explicitly.
                 r0 = jax.lax.stop_gradient(r0)
             u_star, (converged, n_iter, w) = sv(
                 inputs, U_init, pol, r0, W_init
@@ -994,7 +818,7 @@ class ADMPPmeForce:
             # differentiable quantity: the solver's custom-vjp backward
             # discards its cotangent (scf/solver.py solve_bwd), so a loss
             # differentiating through W_adj would silently see zeros.
-            # stop_gradient makes that contract explicit (ADVICE r4).
+            # stop_gradient makes that contract explicit.
             return energy, (
                 u_star, converged, n_iter, jax.lax.stop_gradient(w)
             )
@@ -1024,7 +848,7 @@ class ADMPPmeForce:
         self._value_grad_aux = maybe_jit(
             jax.value_and_grad(energy_and_aux, has_aux=True)
         )
-        # adjoint-carrying variants (VERDICT r3 item 5): thread W_init and
+        # adjoint-carrying variants: thread W_init and
         # receive the next step's warm start in the aux tuple
         self._energy_and_aux_w = maybe_jit(energy_and_aux_w)
         self._value_grad_aux_w = maybe_jit(
@@ -1079,7 +903,7 @@ class ADMPPmeForce:
                 positions, box, pairs, Q_local, pol, tholes,
                 mScales, pScales, dScales, U_init,
             )
-            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None  # unchunked to 4M pairs: lax.map chunking measured 1.5x slower at 1.6M (examples/realspace_98k_tpu.out)
+            pair_chunk = (1 << 21) if pairs.shape[0] > (1 << 22) else None
             _, terms = energy_pme(
                 positions, box, pairs, Q_local, u, pol, tholes,
                 mScales, pScales, dScales, covalent_map, axis_types,

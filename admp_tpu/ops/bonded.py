@@ -3,7 +3,7 @@
 The reference delegates all bonded interactions to OpenMM (its XMLs carry
 <HarmonicBondForce>/<HarmonicAngleForce> blocks that ADMP itself never reads,
 e.g. examples/water_1024/mpidwater.xml:16-21); without them no stand-alone MD
-is possible. This module implements them TPU-style: fixed index arrays, fully
+is possible. This module implements them with fixed index arrays, fully
 vectorized, differentiable. OpenMM conventions: E = k/2 (r - r0)^2 and
 E = k/2 (theta - theta0)^2, with k and lengths converted to the engine's
 A / kJ/mol units by the caller (nm^2 -> A^2 divides k by 100).

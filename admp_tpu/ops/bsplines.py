@@ -1,8 +1,8 @@
 """Order-6 cardinal B-splines and derivatives, evaluated branch-free.
 
 The reference evaluates the full piecewise polynomial with ``jnp.piecewise`` at all
-216 stencil points x 3 dimensions per atom (reference: admp/recip.py:80-137). On TPU
-``piecewise`` lowers to a cascade of selects over every lane. Here we exploit the
+216 stencil points x 3 dimensions per atom (reference: admp/recip.py:80-137).
+``piecewise`` lowers to a cascade of selects over every element. Here we exploit the
 PME structure instead: the fractional offset u0 of an atom always lies in [3, 4)
 (order/2 shifted, reference: admp/recip.py:77), so the stencil point at offset
 k - 3 (k = 0..5) has its argument u = u0 + k - 3 in [k, k+1) — the piecewise branch
@@ -17,6 +17,8 @@ used — coefficients match piece by piece).
 """
 
 from __future__ import annotations
+
+from math import comb
 
 import numpy as np
 import jax.numpy as jnp
@@ -57,10 +59,30 @@ _C4B = _piece_coeffs(4)           # B4 pieces
 _C4B1 = _C4B[:, 1:] * np.arange(1, 4)
 _C4B2 = _C4B1[:, 1:] * np.arange(1, 3)
 
-# (value, d/du, d2/du2) coefficient tables per supported spline order.
-# B4'' is piecewise *linear* (C0 at the knots) — usable for quadrupole
-# spreading, with the accuracy cost measured in examples/electro_tuning_tpu.
-_TABLES = {6: (_C, _C1, _C2), 4: (_C4B, _C4B1, _C4B2)}
+
+
+def _shift_to_local(coeffs: np.ndarray) -> np.ndarray:
+    """Re-express each piece k (power basis in u on [k, k+1)) in the local
+    variable t = u - k in [0, 1). Same polynomials; evaluating them in t
+    avoids the cancellation of large alternating u^p terms, which in
+    float32 costs ~1e-4 relative on the small tail pieces."""
+    out = np.zeros_like(coeffs)
+    for k in range(coeffs.shape[0]):
+        # p(t + k) = sum_p c_p (t + k)^p, expanded binomially in t
+        for p_, c in enumerate(coeffs[k]):
+            for q in range(p_ + 1):
+                out[k, q] += c * comb(p_, q) * float(k) ** (p_ - q)
+    return out
+
+
+# (value, d/du, d2/du2) coefficient tables per supported spline order, in
+# the local variable t = u0 - order/2 (see _eval_pieces). B4'' is piecewise
+# *linear* (C0 at the knots) — usable for quadrupole spreading, at a
+# measured accuracy cost (ROADMAP.md history).
+_TABLES = {
+    6: tuple(_shift_to_local(c) for c in (_C, _C1, _C2)),
+    4: tuple(_shift_to_local(c) for c in (_C4B, _C4B1, _C4B2)),
+}
 
 # B6 evaluated at the integer knots 1..5 — the Euler spline factors for theta_k
 # (reference: admp/recip.py:400-408 evaluates these at runtime; they are constants).
@@ -69,11 +91,12 @@ B6_KNOTS = np.array([1.0, 26.0, 66.0, 26.0, 1.0]) / 120.0
 
 
 def _eval_pieces(u0, coeff_table):
-    """Evaluate each piece k at u = u0 + k - order/2.
+    """Evaluate each piece k at u = u0 + k - order/2, i.e. at the local
+    variable t = u0 - order/2 in [0, 1) of its [k, k+1) interval.
 
     Args:
       u0: (..., 3) fractional offsets in [order/2, order/2 + 1).
-      coeff_table: (order, deg+1) static coefficients.
+      coeff_table: (order, deg+1) static coefficients in t (_TABLES).
     Returns:
       (..., order, 3): value of stencil offset k (axis -2) per dimension.
     """
@@ -82,12 +105,12 @@ def _eval_pieces(u0, coeff_table):
     # cast coefficients to the input dtype: numpy f64 scalars would otherwise
     # promote f32 arrays to f64 under jax_enable_x64 (mixed-precision runs)
     table = coeff_table.astype(np.result_type(u0.dtype))
+    t = u0 - order / 2.0
     for k in range(order):
-        u = u0 + (k - order / 2.0)
         c = table[k]
-        acc = jnp.full_like(u, c[-1])
+        acc = jnp.full_like(t, c[-1])
         for p in range(len(c) - 2, -1, -1):
-            acc = acc * u + c[p]
+            acc = acc * t + c[p]
         outs.append(acc)
     return jnp.stack(outs, axis=-2)
 

@@ -1,11 +1,9 @@
 """Double-single (two-float32) reciprocal PME: the <1e-6 accuracy engine.
 
-Round-2 attribution (ROADMAP.md) pinned the TPU f32 force-error floor at
-1.37e-6 on the hardware FFT's internal rounding, and the only mode below 1e-6
-was 'f64-dft' — explicit matmul DFTs inside the software-emulated-f64 pipeline
-at 509 ms/step (25x the f32 step). This module rebuilds the reciprocal path in
-hand-rolled double-single arithmetic (utils/ds.py) that stays on the native
-f32 vector units:
+The plain f32 reciprocal path carries the weight-pipeline and FFT rounding
+of float32. This module rebuilds the reciprocal path in hand-rolled
+double-single arithmetic (utils/ds.py) that stays in float32 operations — an
+alternative to the float64 routes ('f64', 'f64-dft'):
 
 * DS B-spline weight pipeline (the piece polynomials of ops/bsplines.py with
   DS-split coefficients) — kills the 3.6e-4 weight-rounding term.
@@ -104,10 +102,9 @@ def ds_fft_lead(re, im, n: int):
     """DS complex FFT along the LEADING axis (length n, power of two).
 
     Cooley-Tukey DIT by even/odd recursion; every split/concat runs on the
-    major axis, so on TPU the minor (lane) dimension stays contiguous —
-    last-axis strided slicing would shuffle lanes at every one of the log2(n)
-    levels. Twiddles are exact-split f64 constants broadcast over the minor
-    axes.
+    major axis, so the minor dimension stays contiguous — last-axis strided
+    slicing would re-layout the data at every one of the log2(n) levels.
+    Twiddles are exact-split f64 constants broadcast over the minor axes.
     """
     if n == 1:
         return re, im
@@ -689,25 +686,9 @@ def make_ds_pme_recip(kappa, grid_shape, lmax: int,
         pot = ds.mul_f(p_re, jnp.float32(2.0))
         pot = ds.mul(pot, ds._bc(ds.from_f64(prefactor), pot))
 
-        from admp_tpu.ops.pallas.spread import (
-            _row_gather_eligible,
-            _row_gather_impl,
-        )
-
-        if _row_gather_eligible(grid_shape):
-            # hi/lo as two channels of one row gather (contiguous mesh rows
-            # ride at bandwidth; per-element gathers run ~60M elem/s —
-            # examples/gatherrow_98k_tpu.out); DS grids are powers of two,
-            # so K3 >= 128 is always lane-aligned
-            both = _row_gather_impl(
-                m_u0, jnp.stack([pot[0], pot[1]]), grid_shape, 6
-            )
-            pw_hi = both[:, 0].reshape(n, 6, 6, 6)
-            pw_lo = both[:, 1].reshape(n, 6, 6, 6)
-        else:
-            flat = _flat_stencil(m_u0, grid_shape)
-            pw_hi = pot[0].reshape(-1)[flat]
-            pw_lo = pot[1].reshape(-1)[flat]
+        flat = _flat_stencil(m_u0, grid_shape)
+        pw_hi = pot[0].reshape(-1)[flat]
+        pw_lo = pot[1].reshape(-1)[flat]
         potwin = (pw_hi, pw_lo)  # (N, 6, 6, 6)
 
         # separable partial contractions up to 3rd-derivative channels

@@ -11,8 +11,8 @@ import numpy as np
 
 
 def next_fft_friendly(n: int) -> int:
-    """Smallest 5-smooth integer >= n (radix-2/3/5 FFTs are far faster on TPU
-    than sizes with large prime factors, and a larger mesh is strictly more
+    """Smallest 5-smooth integer >= n (radix-2/3/5 FFTs avoid the slow paths
+    of sizes with large prime factors, and a larger mesh is strictly more
     accurate — rounding up loses nothing)."""
     m = int(n)
     while True:
@@ -48,28 +48,7 @@ def setup_ewald_parameters(rc: float, ethresh: float, box) -> tuple:
 
 def setup_ewald_parameters_fft(rc: float, ethresh: float, box) -> tuple:
     """As :func:`setup_ewald_parameters` but with mesh sizes rounded up to
-    5-smooth values (TPU production default; >= the reference's accuracy)."""
+    5-smooth values (>= the reference's accuracy)."""
     kappa, k1, k2, k3 = setup_ewald_parameters(rc, ethresh, box)
     return kappa, next_fft_friendly(k1), next_fft_friendly(k2), next_fft_friendly(k3)
 
-
-def lane_align_k3(k3: int, max_stretch: float = 4.0 / 3.0) -> int:
-    """Round the trailing mesh size up to the next multiple of 128 when the
-    stretch stays within ``max_stretch``.
-
-    Lane-aligned trailing grids (K3 % 128 == 0) ride the pure-XLA row-gather
-    spread adjoint (ops/pallas/spread._row_gather_impl): full mesh rows
-    gather at memory bandwidth instead of ~10-14 ns per random element.
-    Measured ladder at the 3000-atom polarizable bench geometry
-    (examples/pol_grid_tpu.out): heuristic 96^3 21.99 ms / (96,96,128)
-    17.91 / 128^3 18.39 — even a 1.33x stretch in ALL dims beat the
-    unaligned heuristic, so a z-only stretch up to 4/3 is adopted. Beyond
-    that the extra FFT/spread traffic loses (K=320 rows are 2.5 lanes and
-    the row path measured SLOWER than the windowed gather there — ROADMAP
-    round-3 continuation 4). A finer mesh is strictly MORE accurate, so
-    rounding up never costs accuracy class."""
-    k3 = int(k3)
-    if k3 % 128 == 0:
-        return k3
-    aligned = -(-k3 // 128) * 128
-    return aligned if aligned <= k3 * max_stretch else k3

@@ -1,12 +1,12 @@
 """Local-frame construction for multipolar sites, and per-pair quasi-internal frames.
 
-Feature parity with reference: admp/spatial.py:44-178, redesigned TPU-first:
+Feature parity with reference: admp/spatial.py:44-178, redesigned for XLA:
 
 * The reference branches on host (``if np.sum(filter) > 0``) and uses boolean-mask
   ``.at[mask].set`` updates (admp/spatial.py:112-134), which bakes the axis-type
   population into the trace and forces recompilation if it changes. Here every
   axis-type variant is computed unconditionally (cheap vector math) and selected
-  with ``jnp.where`` — one static compilation, pure data flow, vectorizes on the VPU.
+  with ``jnp.where`` — one static compilation, pure data flow, fully vectorized.
 * Axis anchor indices may be -1 ("absent"). The reference relies on Python negative
   indexing semantics (wrap to the last atom); we reproduce that with an explicit
   ``mod`` so behavior under jit is identical and well-defined.
@@ -104,9 +104,7 @@ def local_frames_components(positions, box, axis_types, axis_indices):
 
     Returns the 9 frame entries (fxx, fxy, fxz, fyx, ..., fzz) as flat (N,)
     arrays — rows are local (x, y, z) axes, same convention. Avoids every
-    (N, 3)/(N, 3, 3) intermediate: TPU tiles pad those minor dims to (8, 128)
-    and the where-selects/stacks force the padded layouts to materialize
-    (same finding as the pair kernel, ROADMAP round-2 continuation).
+    (N, 3)/(N, 3, 3) intermediate with tiny minor dimensions.
     """
     n = positions.shape[0]
     box_inv = inv3x3(box)

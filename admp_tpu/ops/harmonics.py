@@ -8,8 +8,8 @@ multipole.py:17-33, rotations at multipole.py:80-201), but a different construct
   (batched) frame matrices — ``d' = R d`` for dipoles and ``T' = R T R^T`` for
   quadrupoles — instead of the explicitly unrolled 5x5 Wigner-style matrix the
   reference hardcodes (admp/multipole.py:124-171). Mathematically identical on the
-  traceless subspace, but expressed as small batched matmuls, which XLA maps onto
-  the TPU MXU, and trivially correct for composition/inverse properties.
+  traceless subspace, but expressed as small batched matmuls, and trivially
+  correct for composition/inverse properties.
 
 Conventions (matching the reference so force-field files are interchangeable):
   Cartesian order:  [c0, dX, dY, dZ, qXX, qYY, qZZ, qXY, qXZ, qYZ]

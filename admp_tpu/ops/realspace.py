@@ -1,7 +1,7 @@
 """Real-space multipolar Ewald: screened interaction tensors and the pair energy.
 
 Feature parity with reference: admp/pme.py:258-475 (coefficients) and
-admp/pme.py:479-729 (kernel + pair expansion), redesigned TPU-first:
+admp/pme.py:479-729 (kernel + pair expansion), redesigned for XLA:
 
 * The reference unrolls the quasi-internal-frame contraction channel by channel
   over ~150 lines (admp/pme.py:525-624). Observing the structure, the pair energy
@@ -13,7 +13,7 @@ admp/pme.py:479-729 (kernel + pair expansion), redesigned TPU-first:
       E_ind = 1/2 qiQJ^T G  qiUI + 1/2 qiQI^T G' qiUJ + qiUJ^T D2 qiUI
   with G' = G sign-flipped on even-parity rows. The code below evaluates these
   contractions directly; identical math, a fraction of the code, and pure
-  elementwise VPU work over the pair batch.
+  elementwise work over the pair batch.
 * Everything is fixed-shape and masked: padded / self pairs flow through with
   sanitized distances and are zeroed in the final sum (no host-side pair
   filtering as in admp/pme.py:671, which defeats jit).
@@ -48,11 +48,10 @@ def take_rows_sorted(table, idx):
     """Row gather ``table[idx]`` whose transpose is a SORTED segment-sum.
 
     The scatter-add transposes of the per-pair row gathers are the dominant
-    backward cost of the real-space pass at scale (~10-14 ns per random row
-    regardless of row width; ROADMAP round-3 continuation 5). When ``idx`` is
+    backward cost of the real-space pass at scale. When ``idx`` is
     non-decreasing — pair lists from this package's neighbor lists are
     emitted i-sorted — ``segment_sum(indices_are_sorted=True)`` replaces the
-    random scatter (measured 28.5 vs 39.8 ms per 1.7M-row pass at 98k atoms).
+    random scatter.
 
     CONTRACT: ``idx`` MUST be non-decreasing. The forward output is identical
     either way; an unsorted ``idx`` silently corrupts gradients. Higher-order
@@ -122,12 +121,8 @@ def qi_pair_components(positions, box, q_comps, i, j, mask, lmax: int,
     ((C,)-array) form.
 
     The array-of-structures formulation materializes (C, 3, 3) frames and
-    (C, 9) rotated multipoles between ops; TPU tiles pad those minor dims to
-    (8, 128) — up to ~40x the logical bytes — and the batched 3x3 einsums
-    force the padded layouts to exist. Measured on the 3000-atom liquid box
-    (53k pair capacity): the frames+rotation stage alone was 8.7 of the
-    14.6 ms real-space step. Component arrays keep every intermediate a flat
-    lane-packed (C,) vector; same math as ops/frames.build_quasi_internal +
+    (C, 9) rotated multipoles between ops; component arrays keep every
+    intermediate a flat (C,) vector; same math as ops/frames.build_quasi_internal +
     ops/harmonics.rot_global2local (reference: admp/spatial.py:149-178,
     admp/multipole.py:92-179).
 
@@ -139,7 +134,7 @@ def qi_pair_components(positions, box, q_comps, i, j, mask, lmax: int,
       (r, qi_i, qi_j, ui, uj): r (C,) sanitized distances; qi_* component
       tuples in the QI frame; ui/uj component triples or None.
     """
-    # Packed-row gathers: TPU gathers (and their scatter-add transposes in
+    # Packed-row gathers: gathers (and their scatter-add transposes in
     # the backward pass) are row-count bound, so positions + multipoles
     # (+ induced dipoles) are concatenated into ONE (N, 3+H(+3)) table and
     # each site costs a single row gather — halving the pair pass's
@@ -213,7 +208,7 @@ def qi_pair_components(positions, box, q_comps, i, j, mask, lmax: int,
     return r, qi_i, qi_j, ui, uj
 
 
-def ewald_screening_s(kr, x, mscale, erfc_fn=erfc):
+def ewald_screening_s(kr, x, mscale):
     """Cancellation-free screening sums s_l = mscale + b_l + [l==2] kr x.
 
     The reference builds b_l = -erf(kr) + sum 2^m (kr)^(2m-1) x / (2m-1)!!
@@ -235,7 +230,7 @@ def ewald_screening_s(kr, x, mscale, erfc_fn=erfc):
     kr3 = kr2 * kr
     kr5 = kr3 * kr2
     ms1 = mscale - 1.0
-    s2 = ms1 + erfc_fn(kr)
+    s2 = ms1 + erfc(kr)
     s2x = s2 + kr * x
     s3 = s2x + (2.0 / 3.0) * kr3 * x
     s4 = s3 + (4.0 / 15.0) * kr5 * x
@@ -254,16 +249,6 @@ def perm_coefficients(r, mscale, kappa, lmax: int):
     """
     kr = kappa * r
     x = 2.0 * exp_accurate(-(kr * kr)) / SQRT_PI
-    return perm_coefficients_from_screening(r, kr, x, mscale, lmax)
-
-
-def perm_coefficients_from_screening(r, kr, x, mscale, lmax: int,
-                                     erfc_fn=erfc):
-    """perm_coefficients given the precomputed screening pieces kr = kappa r
-    and x = (2/sqrt(pi)) exp(-kr^2) — split out so the fused Pallas pair
-    kernel (ops/pallas/pairs.py) can supply its Mosaic-lowerable gaussian
-    and erfc while sharing every coefficient expression with this XLA
-    path."""
     r_inv = 1.0 / r
     d1 = DIELECTRIC * r_inv
     d2 = d1 * r_inv
@@ -273,7 +258,7 @@ def perm_coefficients_from_screening(r, kr, x, mscale, lmax: int,
     kr2 = kr * kr
     kr3 = kr2 * kr
     kr5 = kr3 * kr2
-    s2, s2x, s3, s4 = ewald_screening_s(kr, x, mscale, erfc_fn)
+    s2, s2x, s3, s4 = ewald_screening_s(kr, x, mscale)
 
     out = {"cc": d1 * s2}
     if lmax >= 1:
@@ -283,9 +268,8 @@ def perm_coefficients_from_screening(r, kr, x, mscale, lmax: int,
     if lmax >= 2:
         out["cq"] = d3 * s3
         out["dq_m0"] = d4 * (3.0 * s3 + (4.0 / 3.0) * kr5 * x)
-        # python-float sqrt(3): jnp.sqrt(3.0) under jax_enable_x64 traces an
-        # f64 sqrt INSIDE consumers' graphs (Mosaic cannot legalize f64
-        # sqrt/truncf in the pair kernels; weak-typed python floats adapt)
+        # python-float sqrt(3): weak-typed, so it adapts to the pair dtype
+        # instead of tracing an f64 sqrt into f32 graphs under x64
         out["dq_m1"] = -math.sqrt(3.0) * d4 * s3
         out["qq_m0"] = d5 * (
             6.0 * s4 + (4.0 / 45.0) * (-3.0 + 10.0 * kr2) * kr5 * x
@@ -295,7 +279,7 @@ def perm_coefficients_from_screening(r, kr, x, mscale, lmax: int,
     return out
 
 
-def thole_factor_complements(u_scaled, exp_fn=exp_accurate):
+def thole_factor_complements(u_scaled):
     """Thole damping factor *complements* (c-1, d0-1, d1-1, q0-1, q1-1) given
     au = a * r / dmp.
 
@@ -307,7 +291,7 @@ def thole_factor_complements(u_scaled, exp_fn=exp_accurate):
     The exp overflow clamp at au > 50 becomes a plain where.
     """
     au = u_scaled
-    exp_au = jnp.where(au < 50.0, exp_fn(-jnp.minimum(au, 50.0)), 0.0)
+    exp_au = jnp.where(au < 50.0, exp_accurate(-jnp.minimum(au, 50.0)), 0.0)
     au2 = au * au
     au3 = au2 * au
     au4 = au3 * au
@@ -319,15 +303,12 @@ def thole_factor_complements(u_scaled, exp_fn=exp_accurate):
     return cm, d0m, d1m, q0m, q1m
 
 
-def induced_coefficients(r, thole1, thole2, dmp, pscale, kappa, lmax: int,
-                         erfc_fn=erfc, exp_fn=exp_accurate):
+def induced_coefficients(r, thole1, thole2, dmp, pscale, kappa, lmax: int):
     """Screened induced-dipole interaction coefficients.
 
     Returns dict with cud, dud_m0, dud_m1, udq_m0, udq_m1, udud_m0, udud_m1.
     Parity with reference: admp/pme.py:379-475. ``uscale`` is fixed to 1 there
-    (admp/pme.py:472) and here. ``erfc_fn``/``exp_fn`` let the fused Pallas
-    pair kernel substitute Mosaic-lowerable implementations (see
-    ops/pallas/pairs.py).
+    (admp/pme.py:472) and here.
     """
     # Thole width: DEFAULT for real interacting pairs (pscale ~ 0), thole1+thole2
     # for scaled intramolecular pairs — a Fermi switch on pscale
@@ -338,7 +319,7 @@ def induced_coefficients(r, thole1, thole2, dmp, pscale, kappa, lmax: int,
 
     dmp_safe = jnp.maximum(dmp, 1e-8)
     u = jnp.minimum(r / dmp_safe, 1e8)
-    tcm, td0m, td1m, tq0m, tq1m = thole_factor_complements(a * u, exp_fn)
+    tcm, td0m, td1m, tq0m, tq1m = thole_factor_complements(a * u)
 
     r_inv = 1.0 / r
     d2 = DIELECTRIC * r_inv * r_inv
@@ -348,14 +329,14 @@ def induced_coefficients(r, thole1, thole2, dmp, pscale, kappa, lmax: int,
     kr2 = kr * kr
     kr3 = kr2 * kr
     kr5 = kr3 * kr2
-    x = 2.0 * exp_fn(-kr2) / SQRT_PI
+    x = 2.0 * exp_accurate(-kr2) / SQRT_PI
     # cancellation-free regrouping (see ewald_screening_s):
     #   pscale * t + b2            = pscale * (t-1) + (pscale-1) + erfc + kr x
     #   pscale * t + b3            = ... + (2/3) kr^3 x
     #   pscale * t + b3 - 2/3kr^3x = pscale * (t-1) + (pscale-1) + erfc + kr x
     # (uscale = 1 terms drop the (pscale-1); reference: admp/pme.py:472)
     ps1 = pscale - 1.0
-    e2 = erfc_fn(kr) + kr * x
+    e2 = erfc(kr) + kr * x
     e3 = e2 + (2.0 / 3.0) * kr3 * x
 
     out = {"cud": 2.0 * d2 * (pscale * tcm + ps1 + e2)}
@@ -448,8 +429,7 @@ def pair_energy_induced(qi_i, qi_j, ui, uj, icoef, lmax: int):
     return 0.5 * (e_ju + e_iu) + e_uu
 
 
-def induced_uu_coefficients(r, thole1, thole2, dmp, pscale, kappa,
-                            erfc_fn=erfc, exp_fn=exp_accurate):
+def induced_uu_coefficients(r, thole1, thole2, dmp, pscale, kappa):
     """Only the induced-induced (udud) screened coefficients.
 
     The SCF matvec A v needs just the u-quadratic part of the energy; the
@@ -467,7 +447,7 @@ def induced_uu_coefficients(r, thole1, thole2, dmp, pscale, kappa,
     dmp_safe = jnp.maximum(dmp, 1e-8)
     u = jnp.minimum(r / dmp_safe, 1e8)
     au = a * u
-    exp_au = jnp.where(au < 50.0, exp_fn(-jnp.minimum(au, 50.0)), 0.0)
+    exp_au = jnp.where(au < 50.0, exp_accurate(-jnp.minimum(au, 50.0)), 0.0)
     au2 = au * au
     au3 = au2 * au
     td0m = -exp_au * (1.0 + au + 0.5 * au2 + au3 / 4.0)
@@ -478,8 +458,8 @@ def induced_uu_coefficients(r, thole1, thole2, dmp, pscale, kappa,
     kr = kappa * r
     kr2 = kr * kr
     kr3 = kr2 * kr
-    x = 2.0 * exp_fn(-kr2) / SQRT_PI
-    e2 = erfc_fn(kr) + kr * x
+    x = 2.0 * exp_accurate(-kr2) / SQRT_PI
+    e2 = erfc(kr) + kr * x
     e3 = e2 + (2.0 / 3.0) * kr3 * x
     udud_m0 = -2.0 / 3.0 * d3 * (3.0 * (td0m + e3) + kr3 * x)
     udud_m1 = d3 * (td1m + e2)

@@ -1,6 +1,6 @@
 """Reciprocal-space PME: B-spline multipole spreading, 3D FFT, influence convolution.
 
-Feature parity with reference: admp/recip.py:21-431, redesigned for TPU/XLA:
+Feature parity with reference: admp/recip.py:21-431, redesigned for XLA:
 
 * Spline weights are evaluated once per dimension per stencil offset (see
   ops/bsplines.py) and combined with outer products, instead of 216 piecewise
@@ -45,12 +45,9 @@ def _dft_mats(k: int, n_out: int, dtype):
 def spectrum_sq_dft(mesh):
     """|DFT(mesh)|^2 over the rfft half-spectrum via explicit matmul DFTs.
 
-    O(K^4) instead of O(K^3 log K), but runs entirely in the mesh dtype:
-    float64 matmuls are exactly emulated on TPU (measured ~3e-15 relative),
-    whereas the hardware f32 FFT's internal rounding (~2.3e-7 spectrum
-    relative) is what holds the f32-pipeline force error at 1.37e-6 on TPU
-    (see ROADMAP round-2 attribution). This is the precision-mode FFT:
-    recip_precision='f64-dft'.
+    O(K^4) instead of O(K^3 log K), but runs entirely in the mesh dtype as
+    plain matmuls, with no FFT-internal rounding. This is the precision-mode
+    FFT: recip_precision='f64-dft'.
     """
     k1, k2, k3 = mesh.shape
     dtype = mesh.dtype
@@ -73,27 +70,9 @@ def spectrum_sq_dft(mesh):
     return re * re + im * im
 
 
-def spectrum_sq(mesh, force_split: bool = False):
-    """|FFT(mesh)|^2 over the rfft half-spectrum, in ``mesh.dtype``.
-
-    TPU has no float64 FFT, but the FFT is linear: split a float64 mesh into
-    hi/lo float32 parts and transform each (FFT(hi) + FFT(lo) carries the full
-    f64 input information; the only loss is the f32 FFT's own internal
-    rounding, measured ~2.4e-7 relative force RMSE — below the 1e-6 target).
-    The magnitude is then assembled in float64 elementwise arithmetic, which
-    the TPU emulates. On CPU the native f64 FFT is used (``force_split`` is
-    for tests that exercise the TPU path on CPU).
-    """
-    if mesh.dtype == jnp.float64 and (
-        force_split or jax.default_backend() != "cpu"
-    ):
-        hi32 = mesh.astype(jnp.float32)
-        lo32 = (mesh - hi32.astype(mesh.dtype)).astype(jnp.float32)
-        sh = jnp.fft.rfftn(hi32)
-        sl = jnp.fft.rfftn(lo32)
-        re = sh.real.astype(mesh.dtype) + sl.real.astype(mesh.dtype)
-        im = sh.imag.astype(mesh.dtype) + sl.imag.astype(mesh.dtype)
-        return re * re + im * im
+def spectrum_sq(mesh):
+    """|FFT(mesh)|^2 over the rfft half-spectrum, in ``mesh.dtype`` (a float64
+    mesh takes the native float64 FFT)."""
     s_k = jnp.fft.rfftn(mesh)
     return jnp.real(s_k * jnp.conj(s_k))
 
@@ -196,67 +175,6 @@ def spread_weights(u0, dug_dx, lmax: int):
     return jnp.concatenate(outs, axis=-1)
 
 
-def _pallas_backend_ok(dtype) -> bool:
-    """Common Pallas-eligibility gate: TPU backend, float32, kernel importable."""
-    if dtype != jnp.float32:
-        return False
-    try:
-        import jax as _jax
-
-        if _jax.default_backend() != "tpu":
-            return False
-        from admp_tpu.ops.pallas.spread import pallas_spread_available
-
-        return pallas_spread_available()
-    except Exception:
-        return False
-
-
-def _pallas_spread_slabs(grid_shape, dtype, order: int, n_ch: int = 1,
-                         n_atoms: int | None = None,
-                         cap_scale: float = 1.0):
-    """'auto' spread-method resolution: the slab count for the Pallas kernel
-    when it can win — TPU backend, float32, and a VMEM footprint that fits the
-    budget (the y/z extent is full-grid; only x is slabbed, so larger grids
-    use more, narrower slabs). Returns None when the XLA scatter should be
-    used instead.
-
-    The footprint counts BOTH the slab accumulator (multi-buffered by Mosaic:
-    x2) and the per-slab atom input block — cap = min(N, 2.5 N / n_slabs + 32)
-    rows of (n_ch * order, order^2) stencil weights, double-buffered (x2).
-    The input side scales with N, so large-N workloads (98k atoms) are
-    ineligible even when the slab itself fits (ADVICE round 2)."""
-    if not _pallas_backend_ok(dtype):
-        return None
-    k1, k2, k3 = grid_shape
-    if k2 % 2 or k3 % 2:
-        # odd grids measured pathological in the kernel (dispersion K=129:
-        # 26.4 ms vs 13.7 scatter / 10.9 at K=128 — unaligned tiling of the
-        # padded slab); even grids (96/128/154) all win
-        return None
-    from admp_tpu.ops.pallas.spread import _bucket_cap, vmem_block_bytes
-
-    for n_slabs in (16, 32, 64):
-        width = -(-k1 // n_slabs)
-        slab_bytes = vmem_block_bytes(
-            (n_ch, width + order - 1, k2 + 16, k3 + 256)
-        )
-        if n_atoms is None:
-            input_bytes = 0
-        else:
-            # the stencil table is a single-buffered manual-DMA scratch
-            # (spread.py _make_spread_dma_kernel); only m_b pipelines (x2)
-            cap = _bucket_cap(n_atoms, n_slabs, cap_scale)
-            input_bytes = (vmem_block_bytes((cap, n_ch * order,
-                                             order * order))
-                           + 2 * vmem_block_bytes((1, cap, 3)))
-        if 2 * slab_bytes + input_bytes <= 13 * 1024 * 1024 and (
-            slab_bytes <= 6 * 1024 * 1024
-        ):
-            return n_slabs
-    return None
-
-
 # Separable-term derivative multi-indices (d^p/dux^p, d^q/duy^q, d^r/duz^r)
 # for the spread stencil: order 0, the three first derivatives, the six
 # second derivatives (p+q+r <= 2).
@@ -320,8 +238,8 @@ def spread_points_separable(u0, alpha, lmax: int, order: int = 6):
     the separable spline-derivative products (see :func:`spread_mixing_matrix`).
 
     The largest intermediate is (N, T, order^2) — ~20x smaller than the
-    (N, order^3, H) weight arrays of the direct formulation, which is what the
-    spread stage (and its force adjoint) is bound by on TPU.
+    (N, order^3, H) weight arrays of the direct formulation, which bound the
+    memory traffic of the spread stage and its force adjoint.
     """
     n = u0.shape[0]
     tabs = [bsplines.spline_values(u0, order)]
@@ -375,17 +293,33 @@ def atom_spread_alpha(positions, box, q_harm, grid_shape, lmax: int,
     return m_u0, u0, alpha
 
 
+def _stencil_flat_index(m_u0, grid_shape, order: int):
+    """(N, order^3) flat indices of each atom's periodic stencil points in the
+    row-major (K1, K2, K3) mesh."""
+    k1, k2, k3 = grid_shape
+    offsets = jnp.arange(-(order // 2), order // 2)
+    idx1 = jnp.mod(m_u0[:, 0:1] + offsets[None, :], k1)  # (N, order)
+    idx2 = jnp.mod(m_u0[:, 1:2] + offsets[None, :], k2)
+    idx3 = jnp.mod(m_u0[:, 2:3] + offsets[None, :], k3)
+    return (
+        (idx1[:, :, None, None] * k2 + idx2[:, None, :, None]) * k3
+        + idx3[:, None, None, :]
+    ).reshape(m_u0.shape[0], order ** 3)
+
+
 def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
-                   atom_chunk: int | None = None, method: str = "scatter",
-                   interpret: bool = False, precision: str | None = None,
+                   atom_chunk: int | None = None,
+                   precision: str | None = None,
                    mesh_dtype=None, order: int = 6):
     """Spread harmonic multipoles onto the (K1, K2, K3) charge mesh.
 
     Quadrupole channels carry the 1/3 prefactor of the MPID convention
-    (reference: admp/recip.py:300-310).
+    (reference: admp/recip.py:300-310). The mesh is accumulated with one flat
+    scatter-add; its transpose (the force-interpolation gather) is a flat
+    gather of the same indices.
 
     ``atom_chunk``: accumulate the mesh over fixed-size atom blocks (lax.scan)
-    to bound the (N, 6, 6, 6, n_harm) weight intermediates at large N.
+    to bound the (N, T, order^2) weight intermediates at large N.
 
     ``precision='f64'``: evaluate the B-spline weight pipeline (spline
     polynomials, harmonic gradient operators, per-atom contraction — all tiny
@@ -397,30 +331,9 @@ def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
 
     ``mesh_dtype``: accumulate the mesh in this dtype instead of the working
     dtype (the full-f64 reciprocal path scatters float64 stencil values into a
-    float64 grid — elementwise-emulated on TPU; the FFT splits hi/lo, see
-    spectrum_sq).
+    float64 grid).
     """
     k1, k2, k3 = grid_shape
-    if atom_chunk is not None and positions.shape[0] > atom_chunk:
-        # Pallas kernel paths bucket/sort ALL atoms once and stream slab
-        # blocks through VMEM — chunking would re-run the kernel per chunk at
-        # low occupancy and re-pay the sort. Only the XLA scatter path needs
-        # the chunk bound (for its (N, T, order^2) weight intermediates).
-        wd = mesh_dtype or q_harm.dtype
-        kernel_eligible = method in ("pallas", "pallas2d")
-        if method == "auto" and order == 6 and _pallas_backend_ok(wd):
-            if _pallas_spread_slabs(
-                grid_shape, wd, order, 1, positions.shape[0]
-            ) is not None:
-                kernel_eligible = True
-            else:
-                from admp_tpu.ops.pallas.spread import pick_blocks_2d
-
-                kernel_eligible = pick_blocks_2d(
-                    grid_shape, order, 1, positions.shape[0]
-                ) is not None
-        if kernel_eligible:
-            atom_chunk = None
     if atom_chunk is not None and positions.shape[0] > atom_chunk:
         n = positions.shape[0]
         n_pad = (-n) % atom_chunk
@@ -434,173 +347,54 @@ def spread_to_mesh(positions, box, q_harm, grid_shape, lmax: int,
         def body(mesh, blk):
             p_blk, q_blk = blk
             return mesh + spread_to_mesh(
-                p_blk, box, q_blk, grid_shape, lmax, None, method, interpret,
-                precision, mesh_dtype, order,
+                p_blk, box, q_blk, grid_shape, lmax, None, precision,
+                mesh_dtype, order,
             ), 0.0
 
         mesh0 = jnp.zeros((k1, k2, k3), mesh_dtype or q_harm.dtype)
         mesh, _ = jax.lax.scan(body, mesh0, (pos_b, q_b))
         return mesh
-    work_dtype = mesh_dtype or q_harm.dtype
-    n_atoms = positions.shape[0]
-
-    n_slabs = 16
-    blocks2d = None
-    if method == "auto":
-        picked = _pallas_spread_slabs(
-            grid_shape, work_dtype, order, 1, n_atoms
-        )
-        if picked is not None and order == 6:
-            method = "pallas"
-            n_slabs = picked
-        elif order == 6 and _pallas_backend_ok(work_dtype):
-            # large grids where the 1-D slab accumulator can't fit VMEM
-            # (K=320-class): try the 2-D (x, y)-blocked kernel
-            from admp_tpu.ops.pallas.spread import pick_blocks_2d
-
-            blocks2d = pick_blocks_2d(grid_shape, order, 1, n_atoms)
-            method = "pallas2d" if blocks2d is not None else "scatter"
-        else:
-            method = "scatter"
-    if method == "pallas2d" and blocks2d is None:
-        from admp_tpu.ops.pallas.spread import pick_blocks_2d
-
-        blocks2d = pick_blocks_2d(grid_shape, order, 1, n_atoms)
-        assert blocks2d is not None, (
-            f"no 2-D block config fits VMEM for grid {grid_shape}"
-        )
 
     m_u0, u0, alpha = atom_spread_alpha(
         positions, box, q_harm, grid_shape, lmax, order, precision
     )
-    if method in ("pallas", "pallas2d"):
-        # presort the LIGHT per-atom arrays by kernel bucket id and build
-        # the heavy (N, order^3) stencil values directly in sorted order —
-        # the kernels then skip their internal sort AND the (N, 216)
-        # sorted-materialize row gather (which measured ~36 ms of the
-        # 98k/K=256 forward spread, examples/spreadfwd_98k_tpu.out)
-        from admp_tpu.ops.pallas import spread as _sp
-
-        if method == "pallas":
-            bid = _sp.slab_bucket_id(m_u0, grid_shape, n_slabs, order)
-            so = _sp.presort_order(bid, n_slabs)
-        else:
-            bid = _sp.bucket_id_2d(
-                m_u0, grid_shape, blocks2d[0], blocks2d[1], order
-            )
-            so = _sp.presort_order(bid, blocks2d[0] * blocks2d[1])
-        m_u0, u0, alpha = m_u0[so], u0[so], alpha[so]
-
     q_points = spread_points_separable(u0, alpha, lmax, order)
-    q_points = q_points.astype(work_dtype)
-
-    if method == "pallas2d":
-        from admp_tpu.ops.pallas.spread import spread_blocks_2d
-
-        return spread_blocks_2d(
-            m_u0, q_points, grid_shape, blocks2d[0], blocks2d[1], interpret,
-            True,
-        )
-    if method == "pallas":
-        # Pallas slab kernel forward + flat-gather adjoint
-        # (ops/pallas/spread.py); with the separable weight pipeline the
-        # kernel wins end-to-end: spread e+g 14.0 -> 10.2 ms at
-        # water_1024/K=128 (round-2 continuation re-measurement — the
-        # round-1 "neutral" verdict predated the cheap weights)
-        from admp_tpu.ops.pallas.spread import spread_blocks
-
-        assert order == 6, "pallas spread kernel is order-6 only"
-        return spread_blocks(
-            m_u0, q_points, grid_shape, n_slabs, interpret, True
-        )
-
-    offsets = jnp.arange(-(order // 2), order // 2)
-    idx1 = jnp.mod(m_u0[:, 0:1] + offsets[None, :], k1)  # (N,order)
-    idx2 = jnp.mod(m_u0[:, 1:2] + offsets[None, :], k2)
-    idx3 = jnp.mod(m_u0[:, 2:3] + offsets[None, :], k3)
-    # flattened 1D scatter: measurably cheaper than the 3D form on TPU,
-    # especially its transpose (the force-gather adjoint)
-    flat = (
-        (idx1[:, :, None, None] * k2 + idx2[:, None, :, None]) * k3
-        + idx3[:, None, None, :]
-    ).reshape(-1)
+    q_points = q_points.astype(mesh_dtype or q_harm.dtype)
+    flat = _stencil_flat_index(m_u0, grid_shape, order).reshape(-1)
     mesh = jnp.zeros((k1 * k2 * k3,), dtype=q_points.dtype)
     return mesh.at[flat].add(q_points.reshape(-1)).reshape(k1, k2, k3)
 
 
-def spread_to_mesh_multi(positions, box, coeffs, grid_shape, order: int = 6,
-                         method: str = "scatter", interpret: bool = False):
+def spread_to_mesh_multi(positions, box, coeffs, grid_shape, order: int = 6):
     """Spread C independent scalar (lmax=0) channels in one pass.
 
     The dispersion PME needs three charge grids (C6, C8, C10 coefficients,
     reference: admp/disp_pme.py:115-119) over identical B-spline geometry —
     the reference runs three full spread pipelines; here the per-atom stencil
-    weights are computed once and scattered with a trailing channel axis.
+    weights are computed once and scattered with a leading channel axis.
 
     Args:
       coeffs: (N, C) per-atom channel coefficients.
     Returns:
-      (C, K1, K2, K3) meshes — channel axis LEADING: a trailing channel axis
-      of 3 tile-pads to the 128-lane TPU tile (~40x the memory traffic) and
-      forces the batched FFT through layout transposes; measured 35 -> ~10 ms
-      on the dispersion reciprocal at water_1024 (round 2).
+      (C, K1, K2, K3) meshes, channel axis leading so the batched FFT runs
+      over contiguous channel grids.
     """
     k1, k2, k3 = grid_shape
     n = positions.shape[0]
     m_u0, u0, _ = mesh_coordinates(positions, box, grid_shape, order)
-
-    if method == "auto":
-        picked = _pallas_spread_slabs(
-            grid_shape, coeffs.dtype, order, coeffs.shape[-1], n
-        )
-        method = "pallas" if picked is not None else "scatter"
-        n_slabs = picked or 16
-    else:
-        n_slabs = 16
-    presorted = False
-    if method == "pallas":
-        # presort the light inputs by slab bucket, build stencil values in
-        # sorted order (see spread_to_mesh)
-        from admp_tpu.ops.pallas import spread as _sp
-
-        bid = _sp.slab_bucket_id(m_u0, grid_shape, n_slabs, order)
-        so = _sp.presort_order(bid, n_slabs)
-        m_u0, u0, coeffs = m_u0[so], u0[so], coeffs[so]
-        presorted = True
-
     if order == 4:
         m = bsplines.spline_values4(u0)  # (N, 4, 3)
     else:
         m = bsplines.spline_values(u0)  # (N, 6, 3)
-    # flat (N, order^3) stencil weights: small trailing dims like (6, 6, 6, C)
-    # tile-pad ~20x on TPU (sublane 8 x lane 128), so keep the last dimension
-    # wide at every materialization point
     txy = (m[:, :, None, 0] * m[:, None, :, 1]).reshape(n, order * order)
     theta = (txy[:, :, None] * m[:, None, :, 2]).reshape(n, order ** 3)
 
-    if method == "pallas":
-        # channel-stacked slab kernel: C6/C8/C10 share the stencil geometry,
-        # one kernel pass accumulates all channels (ops/pallas/spread.py)
-        from admp_tpu.ops.pallas.spread import spread_blocks_multi
-
-        q_blocks = theta[:, None, :] * coeffs[:, :, None]  # (N, C, order^3)
-        return spread_blocks_multi(
-            m_u0, q_blocks, grid_shape, order, n_slabs, interpret, presorted
-        )
-
-    offsets = jnp.arange(-(order // 2), order // 2)
-    idx1 = jnp.mod(m_u0[:, 0:1] + offsets[None, :], k1)
-    idx2 = jnp.mod(m_u0[:, 1:2] + offsets[None, :], k2)
-    idx3 = jnp.mod(m_u0[:, 2:3] + offsets[None, :], k3)
-    flat = (
-        (idx1[:, :, None, None] * k2 + idx2[:, None, :, None]) * k3
-        + idx3[:, None, None, :]
-    ).reshape(n, order ** 3)
+    flat = _stencil_flat_index(m_u0, grid_shape, order)
     n_ch = coeffs.shape[-1]
     # one flat 1D scatter over all channels: channel c lives at offset c*K^3
     kcube = k1 * k2 * k3
     all_idx = (flat[None, :, :] + (jnp.arange(n_ch) * kcube)[:, None, None])
-    vals = theta[None, :, :] * coeffs.T[:, :, None]  # (C, N, 216)
+    vals = theta[None, :, :] * coeffs.T[:, :, None]  # (C, N, order^3)
     mesh = jnp.zeros((n_ch * kcube,), dtype=theta.dtype)
     mesh = mesh.at[all_idx.reshape(-1)].add(vals.reshape(-1))
     return mesh.reshape(n_ch, k1, k2, k3)
@@ -632,7 +426,7 @@ def convolve_energy_multi(meshes, box, kappa, ck_fns, include_gamma, prefactor=1
 
 
 def make_disp_pme_recip(ck_fns, kappa, grid_shape, static_box=None,
-                        spread_order: int = 6, spread_method: str = "auto"):
+                        spread_order: int = 6):
     """Multi-channel dispersion reciprocal engine: one spread, one batched FFT
     for all C6/C8/C10 grids (3x fewer scatter and FFT passes than the
     per-channel pipeline the reference uses, admp/disp_pme.py:61-77).
@@ -664,7 +458,6 @@ def make_disp_pme_recip(ck_fns, kappa, grid_shape, static_box=None,
             box = _cached_influence_box_guard(box)
         meshes = spread_to_mesh_multi(
             positions, box, c_list[:, : len(ck_fns)], grid_shape, spread_order,
-            spread_method,
         )
         if cached is not None:
             weights, gammas = cached
@@ -801,22 +594,21 @@ def influence_weights(box, grid_shape, kappa, ck_fn, include_gamma: bool,
 
 
 def convolve_energy(mesh, box, kappa, ck_fn, include_gamma: bool, prefactor=1.0,
-                    compensated: bool = False, force_split: bool = False,
-                    dft: bool = False, order: int = 6):
+                    compensated: bool = False, dft: bool = False,
+                    order: int = 6):
     """E = prefactor * sum_k C(k^2) |S_k|^2 / theta_k^2.
 
     The mesh is real, so the spectrum is Hermitian: an rfft over the last axis
     plus multiplicity weights halves the FFT, the influence evaluation, and
-    their adjoints relative to a full complex FFT. A float64 mesh routes
-    through the hi/lo split FFT (see spectrum_sq) and keeps the influence
-    evaluation and Parseval sum in float64.
+    their adjoints relative to a full complex FFT. A float64 mesh keeps the
+    FFT, the influence evaluation and the Parseval sum in float64.
     """
     grid_shape = mesh.shape
     box = box.astype(mesh.dtype)
     volume = det3x3(box)
     ksq, theta_sq = k_space_grids(box, grid_shape, mesh.dtype, rfft=True,
                                   order=order)
-    s_sq = spectrum_sq_dft(mesh) if dft else spectrum_sq(mesh, force_split)
+    s_sq = spectrum_sq_dft(mesh) if dft else spectrum_sq(mesh)
 
     nonzero = ksq > 0.0
     ksq_safe = jnp.where(nonzero, ksq, 1.0)
@@ -831,7 +623,6 @@ def convolve_energy(mesh, box, kappa, ck_fn, include_gamma: bool, prefactor=1.0,
 
 
 def make_pme_recip(ck_fn, kappa, include_gamma, grid_shape, lmax, prefactor=1.0,
-                   spread_method: str = "scatter",
                    spread_precision: str | None = None,
                    recip_precision: str | None = None,
                    compensated: bool = False,
@@ -848,11 +639,10 @@ def make_pme_recip(ck_fn, kappa, include_gamma, grid_shape, lmax, prefactor=1.0,
     NPT/virial workloads. (Same contract as the dispersion engine's
     cache_influence.)
 
-    ``recip_precision='f64'``: float64 mesh accumulation, hi/lo split FFT,
+    ``recip_precision='f64'``: float64 mesh accumulation, float64 FFT,
     float64 influence convolution (implies the f64 spread-weight pipeline).
-    ``'f64-dft'``: same, but with an explicit-matmul DFT instead of the split
-    f32 FFT — removes the hardware FFT's internal rounding entirely (see
-    spectrum_sq_dft). The energy is returned in the working dtype of
+    ``'f64-dft'``: same, but with an explicit-matmul DFT instead of the FFT
+    (see spectrum_sq_dft). The energy is returned in the working dtype of
     ``q_harm``.
     """
     grid_shape = tuple(int(k) for k in grid_shape)
@@ -889,8 +679,6 @@ def make_pme_recip(ck_fn, kappa, include_gamma, grid_shape, lmax, prefactor=1.0,
     f64_mode = recip_precision in ("f64", "f64-dft")
     if f64_mode:
         spread_precision = "f64"
-        if spread_method == "pallas":
-            spread_method = "scatter"  # the slab kernel is f32-only
 
     cached = None
     if static_box is not None:
@@ -913,8 +701,8 @@ def make_pme_recip(ck_fn, kappa, include_gamma, grid_shape, lmax, prefactor=1.0,
         atom_chunk = 4096 if positions.shape[0] > 16384 else None
         mesh_dtype = jnp.float64 if f64_mode else None
         mesh = spread_to_mesh(
-            positions, box, q_harm, grid_shape, lmax, atom_chunk, spread_method,
-            False, spread_precision, mesh_dtype, spread_order,
+            positions, box, q_harm, grid_shape, lmax, atom_chunk,
+            spread_precision, mesh_dtype, spread_order,
         )
         if u_harm is not None:
             q_u = jnp.concatenate(
@@ -922,8 +710,8 @@ def make_pme_recip(ck_fn, kappa, include_gamma, grid_shape, lmax, prefactor=1.0,
                 axis=-1,
             )
             mesh = mesh + spread_to_mesh(
-                positions, box, q_u, grid_shape, 1, atom_chunk, spread_method,
-                False, spread_precision, mesh_dtype, spread_order,
+                positions, box, q_u, grid_shape, 1, atom_chunk,
+                spread_precision, mesh_dtype, spread_order,
             )
         if cached is not None:
             weight, gamma0 = cached

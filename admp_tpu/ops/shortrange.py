@@ -1,6 +1,6 @@
 """Generic short-range pairwise interactions and the Tang-Toennies kernel.
 
-Feature parity with reference: admp/pairwise.py:45-113, with the TPU-shaped
+Feature parity with reference: admp/pairwise.py:45-113, with the fixed-shape
 contract: fixed-capacity padded pair arrays + masks, single jit boundary, no
 host-side filtering.
 """
@@ -53,7 +53,7 @@ def expand_pairs(positions, box, pairs, covalent_map, scales,
     i = jnp.minimum(raw_i, n - 1)
     j = jnp.minimum(raw_j, n - 1)
     # component-form geometry: one AoS gather per site, then scalar wrap —
-    # (C, 3) displacement intermediates tile-pad on TPU (see ops/realspace)
+    # no (C, 3) displacement intermediates (see ops/realspace)
     if pairs_i_sorted is True:
         from admp_tpu.ops.realspace import take_rows_sorted
 
@@ -107,7 +107,7 @@ def generate_pairwise_interaction(pair_int_kernel, covalent_map,
             positions, box, pairs, covalent_map, m_scales, pairs_i_sorted
         )
         # pack the per-atom parameter columns and gather each site ONCE:
-        # a (C, P) row-per-index gather beats P separate 1-D gathers on TPU
+        # one (C, P) row-per-index gather instead of P separate 1-D gathers
         packed = jnp.stack(atomic_params, axis=-1)
         if pairs_i_sorted is True:
             from admp_tpu.ops.realspace import take_rows_sorted

@@ -1,4 +1,4 @@
-"""Distributed 3D FFT: pencil decomposition with all_to_all transposes over ICI.
+"""Distributed 3D FFT: pencil decomposition with all_to_all transposes between devices.
 
 The reference computes ``jnp.fft.fftn`` on a single device
 (reference: admp/recip.py:410) — its only scaling strategy is a bigger chip.

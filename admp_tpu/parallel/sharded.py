@@ -1,8 +1,8 @@
 """Sharded multipolar PME: atom/pair/grid parallelism over a device mesh.
 
 The reference has no parallelism of any kind (no pmap/shard_map/psum anywhere —
-see SURVEY.md section 2); this module is the scale-out layer designed for TPU
-pods:
+see SURVEY.md section 2); this module is the scale-out layer over a device
+mesh (one host's GPUs, all to all over NVLink):
 
 * pair-parallel real space: the padded pair list is sharded across the mesh
   axis; positions (small) stay replicated; partial energies are psum-reduced.
@@ -282,8 +282,7 @@ def _make_local_uu_energy(axis_name, n_dev, grid_shape, kappa, covalent_map,
     splines), dipole self-energy, polarization penalty. The sharded mirror of
     models/pme.make_induced_quadratic_energy; used by every PCG iteration of
     the forward SCF solve AND of the implicit-adjoint solve inside each force
-    evaluation (round-2 VERDICT weak-point 1: the sharded path previously
-    paid a full sharded field evaluation per iteration).
+    evaluation.
     """
     from admp_tpu.ops.exclusions import SparseExclusions
     from admp_tpu.ops.harmonics import cart_dipole_to_harm
@@ -349,11 +348,6 @@ def make_sharded_pme_energy(
         axis_types, axis_indices, covalent_map,
         config=config, static_box=static_box,
     )
-    # check_vma=False on every shard_map here: with vma checking on, JAX
-    # inserts `pvary` ops inside the traced bodies, and Pallas TPU lowering
-    # has no rule for pvary — the Pallas pair/spread kernels the bodies call
-    # would fail to compile (and pallas_call out_shapes would additionally
-    # need explicit vma annotations, see ops/pallas/vma.py).
     return jax.shard_map(
         local,
         mesh=mesh,

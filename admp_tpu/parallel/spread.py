@@ -81,71 +81,11 @@ def _halo_fold(buf, width: int, halo: int, axis_name, n_dev: int):
     return buf
 
 
-def _local_slab_spread(base_r, q_points, dev, width, halo, k2, k3, order,
-                       spread_method, interpret):
+def _local_slab_spread(base_r, q_points, dev, width, halo, k2, k3, order):
     """Scatter-add received stencil values into this device's halo-padded
-    (width + halo, k2, k3) slab buffer.
-
-    ``spread_method='auto'|'pallas'`` routes through the SAME Pallas slab
-    kernel the single-chip production path uses (ops/pallas/spread.py
-    spread_blocks): stencil x-rows are slab-relative and never exceed
-    width + halo - 1, so a periodic spread onto a (width + halo, k2, k3)
-    "grid" is exactly the non-periodic halo-buffer scatter; a synthetic
-    m_u0' = base + half makes the kernel's internal
-    base = mod(m_u0' - half, ...) reproduce the slab-local indices. Falls
-    back to the flat XLA scatter off-TPU / non-f32 / VMEM-ineligible
-    ('auto'), on kernel bucket overflow (inside spread_blocks), and for
-    non-order-6 stencils (VERDICT r3 item 6)."""
+    (width + halo, k2, k3) slab buffer: x rows are slab-relative (no wrap —
+    halo rows live past width), y/z wrap periodically."""
     lx = base_r[:, 0] - dev.astype(jnp.int32) * width
-
-    use_kernel = False
-    n_slabs = 16
-    x_ext = width + halo
-    # every base row (real AND padding) lives in [0, width) — the halo rows
-    # are only reached by stencil offsets — while the kernel's buckets cover
-    # n_slabs*ceil(x_ext/n_slabs) rows, so the occupancy concentrates by
-    # that ratio relative to the kernel's uniform-mean capacity assumption.
-    # Pass it as cap_scale or the kernel overflows at PRODUCTION occupancy
-    # (n ~ 3x n_loc rows incl. zero-weight padding) and silently demotes
-    # every step to kernel-plus-discarded-scatter (ADVICE r4 medium).
-    def _cap_scale(nb: int) -> float:
-        return (nb * (-(-x_ext // nb))) / max(width, 1)
-
-    if spread_method in ("auto", "pallas") and order == 6:
-        from admp_tpu.ops.reciprocal import _pallas_spread_slabs
-
-        slab_grid = (width + halo, int(k2), int(k3))
-        if interpret and spread_method == "pallas":
-            use_kernel = True
-        else:
-            picked = _pallas_spread_slabs(
-                slab_grid, q_points.dtype, order, 1, base_r.shape[0],
-                cap_scale=_cap_scale(16),
-            )
-            if picked is not None:
-                use_kernel = True
-                n_slabs = picked
-        # the kernel's x-wrap fold requires the padded extent overhang
-        # (n_slabs*ceil(k1'/n_slabs) + halo - k1') to fit inside k1' — a
-        # non-issue at production grid sizes, but halo slabs can be narrow
-        while n_slabs > 1 and (
-            n_slabs * (-(-x_ext // n_slabs)) + halo - x_ext > x_ext
-        ):
-            n_slabs //= 2
-
-    if use_kernel:
-        from admp_tpu.ops.pallas.spread import spread_blocks
-
-        half = order // 2
-        m_u0_slab = jnp.stack(
-            [lx + half, base_r[:, 1] + half, base_r[:, 2] + half], axis=-1
-        )
-        return spread_blocks(
-            m_u0_slab, q_points.reshape(-1, order, order, order),
-            (width + halo, int(k2), int(k3)), n_slabs, interpret,
-            False, _cap_scale(n_slabs),
-        )
-
     offs = jnp.arange(order, dtype=jnp.int32)
     idx1 = lx[:, None] + offs[None, :]                      # (A, order)
     idx2 = jnp.mod(base_r[:, 1:2] + offs[None, :], k2)
@@ -162,9 +102,7 @@ def _local_slab_spread(base_r, q_points, dev, width, halo, k2, k3, order,
 def sharded_spread_halo(positions, box, q_harm, grid_shape, lmax: int,
                         axis_name, n_dev: int, order: int = 6,
                         cap_factor: float = 3.0,
-                        precision: str | None = None,
-                        spread_method: str = "auto",
-                        interpret: bool = False):
+                        precision: str | None = None):
     """Halo-exchange spread of harmonic multipoles, for use INSIDE shard_map.
 
     Args:
@@ -172,10 +110,6 @@ def sharded_spread_halo(positions, box, q_harm, grid_shape, lmax: int,
         block ``[dev * N/P, (dev+1) * N/P)`` (the same convention the round-2
         atom-sharded spread used).
       grid_shape: (K1, K2, K3) with K1 % n_dev == 0.
-      spread_method: 'auto' (Pallas slab kernel for the local scatter when
-        TPU/f32/VMEM-eligible, XLA scatter otherwise), 'pallas' (force the
-        kernel; with ``interpret=True`` runs the Pallas interpreter on CPU),
-        or 'scatter'.
 
     Returns:
       (slab, overflow): the (K1/P, K2, K3) slab owned by this device (the
@@ -218,11 +152,7 @@ def sharded_spread_halo(positions, box, q_harm, grid_shape, lmax: int,
         0,
     )
     # give invalid rows an owner-consistent x so their (zero-weight) scatter
-    # rows stay inside the destination slab — SPREAD over the slab's rows
-    # (slot % width), not pinned at row 0: at production occupancy the
-    # ~(cap_factor-1)*n_loc padding rows would all land in the Pallas
-    # kernel's first slab bucket and overflow it, silently demoting every
-    # step to kernel-plus-discarded-fallback (ADVICE r4 medium)
+    # rows stay inside the destination slab, spread over its rows
     pad_x = (
         jnp.arange(n_dev, dtype=jnp.int32)[:, None] * width
         + jnp.arange(cap, dtype=jnp.int32)[None, :] % width
@@ -241,12 +171,8 @@ def sharded_spread_halo(positions, box, q_harm, grid_shape, lmax: int,
     q_points = spread_points_separable(u0_r, alpha_r, lmax, order)
     q_points = q_points.astype(q_harm.dtype)
 
-    # local scatter: x rows are slab-relative (no mod — halo rows live past
-    # width), y/z wrap periodically; Pallas slab kernel when eligible
-    buf = _local_slab_spread(
-        base_r, q_points, dev, width, halo, k2, k3, order, spread_method,
-        interpret,
-    )
+    buf = _local_slab_spread(base_r, q_points, dev, width, halo, k2, k3,
+                             order)
 
     buf = _halo_fold(buf, width, halo, axis_name, n_dev)
     slab = buf[:width]

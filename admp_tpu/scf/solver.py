@@ -134,9 +134,8 @@ def _adjoint_pcg(matvec, diag, g, config, x0=None):
     """Adjoint solve A w = g (A symmetric) at a relative tolerance floored
     at 40*eps of the working dtype: an f32 PCG cannot reduce the residual
     below its rounding floor, and an unreachable target (the f64-grade 1e-8
-    default on an f32 TPU pipeline) otherwise burns the full 4*max_iter cap
-    on EVERY force call (measured: 1.12 s/step vs 71 ms at 3 iterations on
-    the 3000-atom bench, examples/pol_ablation_tpu.out). At the floor
+    default on an f32 pipeline) otherwise burns the full 4*max_iter cap
+    on EVERY force call. At the floor
     (~4.8e-6 relative for f32) the adjoint correction — itself O(SCF
     residual) — keeps far more accuracy than the f32 force pipeline can
     represent. Default x0 = 0, so r0 = g exactly — no matvec(0) evaluation;
@@ -263,9 +262,8 @@ def make_induced_dipole_solver(field_fn, config: SCFConfig = SCFConfig(),
         models/pme.py make_induced_quadratic_energy). Used for every PCG
         iteration of the forward solve AND the implicit-adjoint solve inside
         each force evaluation. (An explicit two-phase prepared matvec with
-        its invariants cached outside the loop measured SLOWER — XLA CSE
-        already shares those subgraphs with the surrounding energy graph;
-        see models/pme.py _build_polarizable for the measured numbers.)
+        its invariants cached outside the loop buys nothing: XLA CSE
+        already shares those subgraphs with the surrounding energy graph.)
       external_r0: the caller supplies the initial residual
         ``r0 = -field(u_init)`` as a fourth argument instead of the solver
         building it internally. This moves the full field build OUT of the
@@ -308,7 +306,7 @@ def make_induced_dipole_solver(field_fn, config: SCFConfig = SCFConfig(),
         # residual norm, but the adjoint solve (which must converge on ALL
         # sites — cotangents land on zero-pol sites too) could NEVER reach
         # any tolerance and burned its full iteration cap on every force
-        # call (measured: 1.12-1.59 s/step on the 3000-atom bench).
+        # call.
         diag = (jnp.maximum(pol_ng, 1e-8) / DIELECTRIC)[:, None]
 
         if matvec_fn is not None:

@@ -68,14 +68,19 @@ def water_lattice(n_side=2, spacing=3.1, jitter=0.1, seed=0):
     return np.concatenate(positions), np.eye(3) * length
 
 
-def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0):
+def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0,
+                 sparse_exclusions=False):
     """Full per-atom arrays for the MPID water model on a synthetic lattice.
 
     Returns dict with positions, box, q_cart, axis_types, axis_indices,
     covalent_map, pol, tholes, c_list, tt (a, b, q) arrays (numpy).
+    ``sparse_exclusions``: return the covalent map as
+    ``ops.exclusions.SparseExclusions`` instead of a dense (N, N) matrix —
+    needed at ~100k atoms, where the dense map takes ~40 GB.
     """
     from admp_tpu.io.topology import build_covalent_map_from_bonds
     from admp_tpu.ops import frames as fc
+    from admp_tpu.ops.exclusions import build_sparse_exclusions
 
     p = MPID_WATER
     positions, box = water_lattice(n_side, spacing, jitter, seed)
@@ -108,7 +113,8 @@ def water_system(n_side=2, spacing=3.1, jitter=0.1, seed=0):
         q_cart=q_cart,
         axis_types=axis_types,
         axis_indices=axis_indices,
-        covalent_map=build_covalent_map_from_bonds(bonds, n, 6),
+        covalent_map=(build_sparse_exclusions if sparse_exclusions
+                      else build_covalent_map_from_bonds)(bonds, n, 6),
         pol=np.tile([p["pol_O"], 0.0, 0.0], nmol),
         tholes=np.tile([p["thole_O"], 0.0, 0.0], nmol),
         c_list=c_list,

@@ -1,14 +1,15 @@
-"""Accuracy-corrected elementary functions for TPU float32.
+"""Accuracy-corrected elementary functions for float32.
 
-The TPU VPU's hardware exp approximation carries ~5e-6 maximum relative error
-(measured; see ROADMAP.md), ~80x worse than a correctly-rounded f32 exp. Every
-Ewald screening coefficient multiplies exp(-x^2) against ~1e3..1e4-magnitude
-prefactors, so this error dominates the engine's f32 force accuracy on TPU.
+Fast hardware exp approximations can carry ~5e-6 maximum relative error,
+~80x worse than a correctly-rounded f32 exp. Every Ewald screening
+coefficient multiplies exp(-x^2) against ~1e3..1e4-magnitude prefactors, so
+such an error would dominate the engine's f32 force accuracy. Whether the
+GPU's own exp needs this correction is ROADMAP design item 3.
 
 ``exp_accurate`` recovers near-1-ulp f32 accuracy with classic range reduction:
   exp(y) = 2^k * exp(r),  k = round(y / ln 2),  r = y - k ln2 (|r| <= ln2/2)
 with ln 2 split into high/low parts and a degree-7 Taylor polynomial for
-exp(r) (|error| < 3e-9 relative on the reduced range). Costs ~15 VPU ops
+exp(r) (|error| < 3e-9 relative on the reduced range). Costs ~15 vector ops
 instead of 1 — negligible against the surrounding arithmetic.
 
 float64 (and any non-f32) inputs fall through to jnp.exp: the polynomial is
@@ -25,7 +26,7 @@ _INV_LN2 = 1.4426950408889634
 
 
 def exp_accurate(y):
-    """exp(y) with ~1-ulp f32 accuracy on TPU (identity for other dtypes)."""
+    """exp(y) with ~1-ulp f32 accuracy (identity for other dtypes)."""
     if y.dtype != jnp.float32:
         return jnp.exp(y)
     k = jnp.round(y * _INV_LN2)
@@ -62,16 +63,15 @@ import jax
 def compensated_sum(x):
     """Sum an array with an error-free TwoSum reduction tree.
 
-    Carries (hi, lo) partials through log2(n) *contiguous-halves* levels (TPU
-    lane-friendly; strided [0::2] gathers are not): the result error is
+    Carries (hi, lo) partials through log2(n) *contiguous-halves* levels
+    (contiguous slices, not strided [0::2] gathers): the result error is
     O(n eps^2) instead of the O(log n eps) of a plain tree reduction — in
     float32 that is exact to well below 1 ulp of the true sum for any
     realistic n. Cost: ~8 flops/element.
 
     The adjoint is defined explicitly as the plain-sum broadcast (the error
     terms' exact derivative is zero); without the custom VJP, reverse-mode AD
-    materializes 20 levels of slice/concat transposes — measured 6x step-time
-    blowup on TPU.
+    materializes 20 levels of slice/concat transposes.
 
     Used for the real-space pair-energy, self-energy, and k-space Parseval
     sums where the reference relies on float64 (admp/settings.py:5) — the

@@ -8,9 +8,10 @@ uses for per-device memory: the jaxpr avals INSIDE a shard_map body are the
 per-device block shapes, so collective input sizes are exactly the per-hop
 payloads each chip puts on the interconnect.
 
-Multi-chip perf on real hardware is bandwidth-predicted by these numbers
-(bytes / ICI bandwidth per hop); recording them makes the sharded layer's
-cost model inspectable without an 8-chip slice (round-4 VERDICT item 5).
+Multi-card perf is bandwidth-predicted by these numbers (bytes / NVLink
+bandwidth per hop: 450 GB/s each way between H100s of one host, all to all);
+recording them makes the sharded layer's cost model inspectable without the
+cards.
 
 Semantics of the tally:
 * bytes are the summed input-operand sizes of each collective eqn (what the

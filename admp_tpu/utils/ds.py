@@ -1,11 +1,10 @@
 """Double-single (two-float32) arithmetic: ~47-bit-significand values as
-(hi, lo) float32 pairs, entirely on the TPU's native f32 VPU/MXU datapaths.
+(hi, lo) float32 pairs, computed entirely with float32 operations.
 
-Why not jnp.float64? XLA:TPU emulates f64 elementwise ops in software at a
-measured 15-20x slowdown (ROADMAP.md), which is what holds the engine's
-<1e-6-accuracy modes at 290-510 ms/step. Hand-rolled double-single stays on
-the vector units at a ~5-15x flop overhead that the memory-bound pipelines
-mostly hide, and — crucially — admits *hand-written adjoints*: reverse-mode AD
+Why not jnp.float64? Double-single stays in float32 arithmetic at a ~5-15x
+flop overhead that the memory-bound pipelines mostly hide, and — crucially —
+admits *hand-written adjoints*; whether it beats native float64 on the GPU is
+ROADMAP design item 4. Reverse-mode AD
 through error-free transformations silently degrades to plain f32 (in exact
 arithmetic every compensation term is identically zero, so AD differentiates
 the uncompensated function), which is why the accuracy engines built on this

@@ -1,10 +1,8 @@
 """Closed-form 3x3 inverse and determinant.
 
-``jnp.linalg.inv``/``det`` lower to an LU decomposition, which XLA:TPU only
-implements for f32/c64 — the float64 (emulated-elementwise) precision modes
-fail to compile with "Only F32 and C64 types are implemented in
-LuDecomposition; got shape f64[3,3]". Every matrix the engine inverts is the
-3x3 simulation cell, so the adjugate/determinant closed form — pure
+``jnp.linalg.inv``/``det`` lower to an LU decomposition, a library call per
+backend and dtype. Every matrix the engine inverts is the 3x3 simulation
+cell, so the adjugate/determinant closed form — pure
 elementwise arithmetic, valid in any dtype, cheaper than LU, and with exact
 reverse-mode derivatives — replaces them throughout.
 """

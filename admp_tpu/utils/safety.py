@@ -1,6 +1,6 @@
 """Numerically-safe helpers for masked fixed-shape computation.
 
-The TPU execution model wants static shapes: invalid lanes (neighbor-list padding,
+XLA wants static shapes: invalid lanes (neighbor-list padding,
 self-pairs) are carried through the computation and masked out of the final sum.
 That only works if the garbage lanes never produce inf/NaN, because
 ``jnp.where(mask, good, bad)`` still propagates NaN *gradients* from the bad branch.
@@ -8,7 +8,7 @@ The fix is the standard double-where: sanitize the *input* of the singular op.
 
 The reference instead clamps values with host-built ``jnp.piecewise`` closures
 (reference: admp/pme.py:351-376); here everything is pure ``jnp.where`` so it
-vectorizes on the VPU and is trivially differentiable.
+vectorizes and is trivially differentiable.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Multi-chip communication-volume accounting on the virtual 8-device mesh.
 
-Round-4 VERDICT item 5: the sharded suites prove correctness and the halo
+The sharded suites prove correctness and the halo
 spread's O(K^3/P) memory is jaxpr-asserted, but nothing recorded collective
 bytes per step — without them multi-chip perf on real hardware is
 unpredicted. This walks the traced jaxprs (admp_tpu/utils/comm.py — the

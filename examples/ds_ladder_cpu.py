@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CPU accuracy ladder for the double-single (two-f32) engine on water_1024.
 
-Methodology (matching examples/precision_tpu.py): every mode runs at
+Methodology: every mode runs at
 identical f32-representable inputs on the SAME K=128 grid as its float64
 oracle, so the number isolates pipeline rounding (not grid discretization).
 North star: rel force RMSE < 1e-6 (BASELINE.md).

@@ -4,11 +4,10 @@
 The FH gradient mode (SCFConfig.exact_adjoint=False — the reference's own
 semantics, admp/pme.py:83,114-125) drops the implicit-adjoint solve and the
 field-VJP from every force call; its force error is O(SCF residual). The
-honest round-3 timing harness (examples/pol_ablation_tpu.out) shows the exact
-adjoint costs ~9 ms per adjoint PCG iteration plus ~20 ms of field-VJP on the
-3000-atom bench, while FH costs nothing — so for production f32 MD the right
-question is: how tight must field_tol be for the FH error to sit below the
-f32 working-precision floor (4.3e-4 relative force RMSE)?
+exact adjoint costs one adjoint PCG solve plus a field-VJP per force call,
+while FH costs nothing — so for production f32 MD the right question is: how
+tight must field_tol be for the FH error to sit below the f32
+working-precision floor (4.3e-4 relative force RMSE)?
 
 This script measures it: exact-adjoint forces at field_tol=1e-4 in f64 are
 the oracle; FH forces at a ladder of field_tol values (warm-started the way

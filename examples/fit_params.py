@@ -96,7 +96,7 @@ def multi_config(n_side=2, n_configs=3, n_epochs=20):
     water configurations stacked into ONE vmapped loss (stack_batch — the
     potential traces once regardless of B), electrostatic PME multipoles
     recovered from energy+force targets. n_side=10 reproduces the
-    3000-atom water_1024-class workload on TPU; the default n_side=3
+    3000-atom water_1024-class workload on the GPU; the default n_side=3
     (81 atoms) keeps the CPU demo under a minute."""
     import shutil
 

@@ -1,13 +1,13 @@
 #!/usr/bin/env python
 """Reciprocal-grid accuracy ladder at the 98k scale (CPU, f64).
 
-The OpenMM heuristic picks K=320 for the 99.3 A box at ethresh=1e-4; the
-bench methodology (examples/electro_tuning_tpu.out) showed water_1024 can run
-17% under the heuristic grid with the force error still below the f32 working
-floor (4.3e-4 relative). This measures the same ladder at 98k atoms: recip
-forces at K in {256, 288, 320} vs a K=384 f64 oracle, normalized by the
-TOTAL force rms of the production step (28.58 kJ/mol/A measured,
-examples/fluctuating_98k_tpu.out). Writes examples/grid_98k_cpu.out.
+The 5-smooth round-up of the OpenMM heuristic picks K=320 for the 99.3 A box
+at ethresh=1e-4. This measures how far under it the 98k-atom step can run
+with the force error still below the f32 working floor (4.3e-4 relative):
+recip forces at K in {256, 288, 320} vs a K=384 f64 oracle, normalized by the
+TOTAL force rms of the production step (28.58 kJ/mol/A, the f32 step of
+examples/fluctuating_multipoles.py --n-side 32). Writes
+examples/grid_98k_cpu.out.
 """
 
 import pathlib
@@ -19,7 +19,7 @@ import numpy as np
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 OUT = pathlib.Path(__file__).with_suffix(".out")
-F_TOTAL_RMS = 28.5794  # kJ/mol/A, examples/fluctuating_98k_tpu.out
+F_TOTAL_RMS = 28.5794  # kJ/mol/A, |F| rms of the 98k f32 step
 
 
 def main():
@@ -60,7 +60,7 @@ def main():
     def recip_forces(k):
         recip = make_pme_recip(
             ck_1, kappa, include_gamma=False, grid_shape=(k, k, k), lmax=2,
-            prefactor=DIELECTRIC, spread_method="scatter",
+            prefactor=DIELECTRIC,
         )
 
         def e(p):

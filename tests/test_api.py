@@ -212,10 +212,10 @@ def test_multi_model_pdb_reads_first_model_only(tmp_path):
 def test_hamiltonian_water1024_matches_reference_composition():
     """Pin the COMPOSED generator potential (E_TT_shortrange - E_dispPME) and
     its mScales parameter gradient on the reference water1024 box against the
-    reference implementation executed in-process (round-2 VERDICT item 7; the
-    analog of reference examples/openmm_api/ref_out:1-3 — openmm itself is
-    not needed: the composition is reference api.py:183-199, reproduced here
-    from the reference's own pairwise/disp_pme modules)."""
+    reference implementation executed in-process (the analog of reference
+    examples/openmm_api/ref_out:1-3 — openmm itself is not needed: the
+    composition is reference api.py:183-199, reproduced here from the
+    reference's own pairwise/disp_pme modules)."""
     import sys
     import types
     import xml.etree.ElementTree as ET

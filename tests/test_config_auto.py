@@ -1,59 +1,46 @@
-"""Auto-resolving defaults (round-4 VERDICT item 3: the measured-best
-configuration must be the DEFAULT, not a bench-only kwarg set):
+"""Auto-resolving defaults (the measured-best configuration must be the
+DEFAULT, not a bench-only kwarg set):
 
-* lane-aligned grid selection — K3 rounded up to a multiple of 128 within a
-  4/3 stretch so the spread adjoint rides the row-gather path
-  (ops/ewald.lane_align_k3; measured ladder examples/pol_grid_tpu.out);
+* fft_friendly_grid='auto' resolves the same way on every backend;
 * pairs_i_sorted='auto' — raw arrays take the safe unsorted path, passing
   the NeighborList OBJECT resolves the hint from its own i_sorted contract.
 """
 
-import jax
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from admp_tpu import ADMPPmeForce, ADMPDispPmeForce, convert_cart2harm
-from admp_tpu.ops.ewald import lane_align_k3, setup_ewald_parameters
+from admp_tpu import settings
+from admp_tpu.ops.ewald import (
+    next_fft_friendly,
+    setup_ewald_parameters,
+    setup_ewald_parameters_fft,
+)
 from admp_tpu.ops.neighborlist import neighbor_list_cell
 from admp_tpu.settings import EngineConfig
 from admp_tpu.systems import water_system
 
 
-def test_lane_align_k3_policy():
-    # aligned stays; within 4/3 rounds up; beyond stays
-    assert lane_align_k3(128) == 128
-    assert lane_align_k3(256) == 256
-    assert lane_align_k3(96) == 128       # the pol-bench footgun: 1.33x
-    assert lane_align_k3(101) == 128      # dispersion 5e-4 heuristic grid
-    assert lane_align_k3(154) == 154      # 1.66x stretch: keep
-    assert lane_align_k3(320) == 384      # 1.2x
-    assert lane_align_k3(200) == 256      # 1.28x
-
-
-def test_pol_bench_box_default_grid_is_lane_aligned():
-    """The 31.3 A polarizable box's heuristic grid is 96^3; with
-    lane_align_grid forced on (it resolves on automatically on TPU/f32) the
-    engine must choose K3 = 128 — the (96, 96, 128) point of the measured
-    ladder (examples/pol_grid_tpu.out: 21.99 / 17.91 / 18.39 ms)."""
-    s = water_system(n_side=10, spacing=3.12, jitter=0.1, seed=1)
-    box = jnp.asarray(s["box"])
-    _, k1, k2, k3 = setup_ewald_parameters(4.0, 1e-4, np.asarray(box))
-    assert (k1, k2, k3) == (96, 96, 96)  # the heuristic baseline
-
-    pme = ADMPPmeForce(
-        box, s["axis_types"], s["axis_indices"], s["covalent_map"],
-        4.0, 1e-4, lmax=2,
-        config=EngineConfig(lane_align_grid=True),
-    )
-    assert (pme.K1, pme.K2, pme.K3) == (96, 96, 128)
-
-    # CPU auto: off — parity/golden suites keep the reference's heuristic
-    pme_cpu = ADMPPmeForce(
-        box, s["axis_types"], s["axis_indices"], s["covalent_map"],
-        4.0, 1e-4, lmax=2,
-    )
-    if jax.default_backend() != "tpu":
-        assert (pme_cpu.K1, pme_cpu.K2, pme_cpu.K3) == (96, 96, 96)
+@pytest.mark.parametrize("auto", [False, True])
+def test_fft_friendly_auto_resolution_ignores_backend(auto):
+    """'auto' takes settings.FFT_FRIENDLY_AUTO whatever the backend; explicit
+    values pass through. The 98k-atom box (n_side=32) is where the choice
+    bites: the heuristic K=305 (5 x 61) rounds up to 320."""
+    box = np.eye(3) * 32 * 3.104  # water_system(n_side=32)'s cell
+    _, k1, _, _ = setup_ewald_parameters(4.0, 1e-4, box)
+    _, kf, _, _ = setup_ewald_parameters_fft(4.0, 1e-4, box)
+    assert (k1, kf) == (305, 320)
+    assert next_fft_friendly(kf) == kf
+    for backend in ("cpu", "gpu"):
+        with mock.patch.object(settings, "FFT_FRIENDLY_AUTO", auto), \
+                mock.patch("jax.default_backend", return_value=backend):
+            assert EngineConfig().resolve_fft_friendly() is auto
+            assert EngineConfig(fft_friendly_grid=True).resolve_fft_friendly()
+            assert not EngineConfig(
+                fft_friendly_grid=False).resolve_fft_friendly()
 
 
 def test_pairs_auto_resolution_from_neighborlist():
@@ -113,3 +100,29 @@ def test_explicit_flag_still_respected():
     m = jnp.array([0.0, 0.0, 0.0, 1.0, 1.0])
     pme.get_energy(pos, box, nl, q, m)  # NL accepted, but no flip
     assert pme.config.pairs_i_sorted is False
+
+
+@pytest.mark.parametrize("env_dir", [True, False])
+def test_compile_cache_rule(env_dir, tmp_path):
+    """JAX_COMPILATION_CACHE_DIR set: JAX uses it and the package sets no
+    directory of its own. Unset: the cache is the fixed .jax_cache inside the
+    checkout, wherever the process runs from."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_COMPILATION_CACHE_DIR",
+                        "ADMP_TPU_COMPILATION_CACHE")}
+    env["PYTHONPATH"] = repo
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "cc")
+    code = ("import admp_tpu, jax; "
+            "print(jax.config.jax_compilation_cache_dir)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    want = (str(tmp_path / "cc") if env_dir
+            else os.path.join(repo, ".jax_cache"))
+    assert out.stdout.strip().splitlines()[-1] == want

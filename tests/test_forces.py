@@ -204,8 +204,7 @@ def test_feynman_hellmann_adjoint_mode():
     (admp/pme.py:114-125) — must run and give forces close to (but measurably
     different from) the exact implicit adjoint; exactness stays the default.
     Measured on the 3000-atom liquid box: the truncation costs 1.7e-3
-    relative force RMSE and saves NO time (the adjoint solve is absorbed by
-    XLA overlap) — see examples/fh_adjoint_tpu.out."""
+    relative force RMSE."""
     import numpy as np
 
     from admp_tpu import ADMPPmeForce, SCFConfig

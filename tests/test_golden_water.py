@@ -100,7 +100,7 @@ def test_electrostatic_regression(water1024, pairs1024):
     q_local = convert_cart2harm(jnp.asarray(sys.q_cart), 2)
     force = ADMPPmeForce(
         jnp.asarray(sys.box), sys.axis_types, sys.axis_indices,
-        sys.covalent_map, RC, ETHRESH, lmax=2,
+        sys.covalent_map, RC, ETHRESH, lmax=2, fft_friendly_grid=False,
     )
     assert force.K1 == 154  # grid chosen with the pre-override kappa
     force.update_env("kappa", KAPPA_MPID)
@@ -124,7 +124,8 @@ def test_dispersion_regression(water1024, pairs1024):
     sys = water1024
     c_list, _, _, _ = water_tt_disp_params(sys.n_atoms)
     force = ADMPDispPmeForce(
-        jnp.asarray(sys.box), sys.covalent_map, RC, ETHRESH, pmax=10
+        jnp.asarray(sys.box), sys.covalent_map, RC, ETHRESH, pmax=10,
+        fft_friendly_grid=False,
     )
     force.update_env("kappa", KAPPA_MPID)
     energy, forces = force.get_forces(
@@ -156,7 +157,7 @@ def test_dispersion_cached_influence_matches(water1024, pairs1024):
     c_list, _, _, _ = water_tt_disp_params(sys.n_atoms)
     force = ADMPDispPmeForce(
         jnp.asarray(sys.box), sys.covalent_map, RC, ETHRESH, pmax=10,
-        cache_influence=True,
+        cache_influence=True, fft_friendly_grid=False,
     )
     force.kappa = KAPPA_MPID
     force.refresh_calculators()

@@ -92,8 +92,8 @@ def test_fitting_loop_reduces_loss(tmp_path):
 
 def test_batched_energy_force_loss_single_trace():
     """A stacked batch evaluates through ONE vmapped trace of the potential
-    for any batch size (VERDICT r3 item 7: the legacy per-entry Python loop
-    unrolled the graph per configuration — recompile per batch size), and
+    for any batch size (a per-entry Python loop unrolls the graph per
+    configuration — recompile per batch size), and
     matches the legacy list-of-entries loss numerically."""
     from admp_tpu.fitting import energy_force_loss, stack_batch
 

@@ -2,8 +2,7 @@
 relative force RMSE < 1e-6 in f32).
 
 Both pipelines evaluate at identical f32-representable inputs so the numbers
-measure pipeline rounding, not input rounding. TPU-measured counterparts are
-committed in examples/precision_tpu.out.
+measure pipeline rounding, not input rounding.
 """
 
 import jax
@@ -100,9 +99,8 @@ def test_exclusion_pair_list_matches_dense_semantics(case):
 
 
 def test_ultra_dft_mode(case):
-    """'f64-dft' replaces the FFT with explicit-matmul DFTs — on TPU this is
-    the mode that removes the hardware FFT's internal rounding (the last
-    ~1.3e-6 term); on CPU it must match the native-f64-FFT ultra result."""
+    """'f64-dft' replaces the FFT with explicit-matmul DFTs; it must match
+    the native-f64-FFT ultra result."""
     d_e, rel = _run(
         case,
         EngineConfig.high_accuracy(

@@ -273,6 +273,7 @@ def test_scf_fixed_point_matches_reference_jacobi(ref, small_water):
         box, sysd["axis_types"], sysd["axis_indices"], sysd["covalent_map"],
         4.0, 1e-3, 2, lpol=True,
         scf_config=SCFConfig(field_tol=0.05, max_iter=100),
+        fft_friendly_grid=False,
     )
     e_my = my_force.get_energy(
         pos, box, pairs, q_local, pol, tholes, M_SCALES, M_SCALES, M_SCALES,
@@ -333,6 +334,7 @@ def test_jacobi_mode_matches_pcg(ref, small_water):
             box, sysd["axis_types"], sysd["axis_indices"], sysd["covalent_map"],
             4.0, 1e-3, 2, lpol=True,
             scf_config=SCFConfig(method=method, field_tol=0.01, max_iter=100),
+            fft_friendly_grid=False,
         )
         force.get_energy(
             pos, box, pairs, q_local, pol, tholes, M_SCALES, M_SCALES,

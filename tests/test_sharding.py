@@ -425,7 +425,7 @@ def test_halo_spread_memory_scales_as_slab(mesh8):
     """The halo-exchange spread must never materialize a full (K1, K2, K3)
     grid per device — its largest grid-shaped intermediate is the
     (K1/P + order-1, K2, K3) slab buffer. Asserted on the traced jaxpr, not
-    vibes (round-2 VERDICT item 2)."""
+    vibes."""
     from jax.sharding import PartitionSpec as P
     from admp_tpu.parallel.spread import sharded_spread_halo
 
@@ -479,19 +479,19 @@ def test_halo_spread_memory_scales_as_slab(mesh8):
     assert not offenders, f"full-grid-sized intermediates: {offenders}"
 
 
-def test_halo_spread_pallas_kernel_matches_scatter(mesh8):
-    """The halo-exchange spread's LOCAL scatter routed through the Pallas
-    slab kernel (spread_method='pallas', interpret mode on CPU) must equal
-    the XLA-scatter path on the 8-device mesh — forward slabs and the
-    position/multipole gradients (the kernel's custom-vjp gather adjoint
-    under shard_map). VERDICT r3 item 6."""
+def test_halo_spread_matches_single_device_spread(mesh8):
+    """The halo-exchange spread's slabs, stacked over the 8-device mesh,
+    equal the single-device flat-scatter mesh — forward and the
+    position/multipole gradients through the local scatter's gather
+    adjoint under shard_map."""
     from jax.sharding import PartitionSpec as P
+    from admp_tpu.ops.reciprocal import spread_to_mesh
     from admp_tpu.parallel.spread import sharded_spread_halo
     from admp_tpu.systems import water_system
 
     s = water_system(n_side=3, spacing=3.1, jitter=0.12, seed=13)
-    positions = jnp.asarray(s["positions"], jnp.float32)
-    box = jnp.asarray(s["box"], jnp.float32)
+    positions = jnp.asarray(s["positions"])
+    box = jnp.asarray(s["box"])
     n = positions.shape[0]
     # pad to a multiple of 8 local atoms
     n_pad = (-n) % 8
@@ -499,63 +499,52 @@ def test_halo_spread_pallas_kernel_matches_scatter(mesh8):
         [positions, positions[:n_pad] + 0.37], axis=0
     )
     rng = np.random.default_rng(4)
-    q = jnp.asarray(
-        rng.standard_normal((positions.shape[0], 9)), jnp.float32
-    )
+    q = jnp.asarray(rng.standard_normal((positions.shape[0], 9)))
     grid = (32, 32, 32)
 
-    def make(method, interp):
-        def body(p, b, qq):
-            slab, _ = sharded_spread_halo(
-                p, b, qq, grid, 2, "model", 8,
-                spread_method=method, interpret=interp,
-            )
-            return slab
+    def body(p, b, qq):
+        slab, _ = sharded_spread_halo(p, b, qq, grid, 2, "model", 8)
+        return slab
 
-        # check_vma=False: the interpret-mode discharge of the kernel's
-        # in-kernel DMA mixes vma-carrying operands with vma-free scratch
-        # (the production sharded layer runs check_vma=False throughout)
-        return jax.shard_map(
-            body, mesh=mesh8,
-            in_specs=(P(), P(), P()),
-            out_specs=P("model", None, None),
-            check_vma=False,
-        )
-
-    mesh_scatter = jax.jit(make("scatter", False))(positions, box, q)
-    mesh_pallas = jax.jit(make("pallas", True))(positions, box, q)
-    np.testing.assert_allclose(
-        np.asarray(mesh_pallas), np.asarray(mesh_scatter), atol=1e-6
+    sharded = jax.shard_map(
+        body, mesh=mesh8,
+        in_specs=(P(), P(), P()),
+        out_specs=P("model", None, None),
+        check_vma=False,
     )
-    assert float(jnp.max(jnp.abs(mesh_scatter))) > 0
+    mesh_sharded = jax.jit(sharded)(positions, box, q)
+    mesh_single = spread_to_mesh(positions, box, q, grid, 2)
+    scale_m = float(jnp.max(jnp.abs(mesh_single)))
+    assert scale_m > 0
+    np.testing.assert_allclose(
+        np.asarray(mesh_sharded), np.asarray(mesh_single),
+        atol=1e-10 * scale_m
+    )
 
-    # gradient path: the kernel's custom-vjp adjoint must run under
-    # shard_map and match the scatter transpose
-    def loss(method, interp):
-        f = make(method, interp)
-
+    def loss(f):
         def inner(p, qq):
-            m = f(p, box, qq)
+            m = f(p, qq)
             return jnp.sum(m * m)
 
         return jax.grad(inner, argnums=(0, 1))
 
-    gp_s, gq_s = jax.jit(loss("scatter", False))(positions, q)
-    gp_k, gq_k = jax.jit(loss("pallas", True))(positions, q)
-    scale = float(jnp.max(jnp.abs(gq_s))) + 1e-30
+    gp_s, gq_s = jax.jit(loss(lambda p, qq: sharded(p, box, qq)))(
+        positions, q)
+    gp_1, gq_1 = jax.jit(loss(
+        lambda p, qq: spread_to_mesh(p, box, qq, grid, 2)))(positions, q)
+    scale = float(jnp.max(jnp.abs(gq_1))) + 1e-30
     np.testing.assert_allclose(
-        np.asarray(gq_k), np.asarray(gq_s), atol=1e-5 * scale
+        np.asarray(gq_s), np.asarray(gq_1), atol=1e-10 * scale
     )
-    scale_p = float(jnp.max(jnp.abs(gp_s))) + 1e-30
+    scale_p = float(jnp.max(jnp.abs(gp_1))) + 1e-30
     np.testing.assert_allclose(
-        np.asarray(gp_k), np.asarray(gp_s), atol=1e-4 * scale_p
+        np.asarray(gp_s), np.asarray(gp_1), atol=1e-10 * scale_p
     )
 
 
 def test_sharded_uu_matvec_matches_field_difference(mesh8, sys64):
     """The cheap sharded SCF matvec (u-quadratic energy gradient) must equal
-    field(v) - field(0) from the full sharded polarizable energy (round-2
-    VERDICT weak-point 1)."""
+    field(v) - field(0) from the full sharded polarizable energy."""
     from jax.sharding import PartitionSpec as P
     from admp_tpu.parallel.sharded import (
         _make_local_energy,
@@ -610,7 +599,7 @@ def test_sharded_uu_matvec_matches_field_difference(mesh8, sys64):
 def test_sharded_water1024_reference_box(mesh8, water1024):
     """Full sharded force field on the REAL 3072-atom reference box with
     K=128 grids: the divisibility/padding story at reference scale, not at
-    64 atoms (round-2 VERDICT item 3)."""
+    64 atoms."""
     from admp_tpu import (
         ADMPDispPmeForce,
         generate_pairwise_interaction,
@@ -682,66 +671,8 @@ def test_sharded_water1024_reference_box(mesh8, water1024):
     )
 
 
-def test_halo_spread_pallas_buckets_fit_at_production_occupancy():
-    """The halo spread's Pallas slab kernel must NOT overflow its static
-    bucket capacity at PRODUCTION occupancy (98k atoms / 8 devices): the
-    received rows include ~(cap_factor-1)*n_loc zero-weight padding rows and
-    every base row (real or padding) lives in the slab's [0, width) region
-    while the kernel's buckets cover n_slabs*ceil(x_ext/n_slabs) rows.
-    Round-4 ADVICE (medium): padding rows were all pinned at lx=0, so slab
-    bucket 0 always overflowed and the kernel result was silently discarded
-    in favor of the scatter fallback — every step paid both. The 8-device
-    equivalence tests run far below the overflow threshold and cannot see
-    this; this test mirrors the production binning math in numpy."""
-    from admp_tpu.ops.pallas.spread import _bucket_cap
-
-    n_dev, n_loc = 8, 12288            # 98304 atoms over 8 devices
-    k1, order = 256, 6
-    width = k1 // n_dev                # 32
-    halo = order - 1
-    x_ext = width + halo               # 37
-    cap_factor = 3.0
-    cap_a2a = min(n_loc, int(-(-n_loc * cap_factor // n_dev)) + 8)
-
-    rng = np.random.RandomState(7)
-    lx_new, lx_old = [], []
-    for _src in range(n_dev):
-        # water-like structure: 3 atoms per molecule share a base row
-        # (structured aliasing is what broke the 1.25x cap in round 3 —
-        # ROADMAP bucket-cap overflow regression)
-        mol_x = rng.randint(0, k1, size=n_loc // 3)
-        base_x = np.repeat(mol_x, 3)
-        dest = base_x[(base_x // width) == 0]       # rows bound for slab 0
-        count = min(dest.size, cap_a2a)
-        pad_slots = np.arange(count, cap_a2a)
-        lx_new.append(np.concatenate([dest[:count], pad_slots % width]))
-        lx_old.append(np.concatenate([dest[:count],
-                                      np.zeros(cap_a2a - count, np.int64)]))
-    lx_new = np.concatenate(lx_new)
-    lx_old = np.concatenate(lx_old)
-    n = lx_new.size
-    assert n == n_dev * cap_a2a
-
-    # kernel-side bucketing (mirrors _pallas_spread_impl at the halo grid)
-    n_slabs = 16
-    kw = -(-x_ext // n_slabs)
-    cap_scale = (n_slabs * kw) / width  # what _local_slab_spread passes
-    cap = _bucket_cap(n, n_slabs, cap_scale)
-
-    counts_new = np.bincount(lx_new // kw, minlength=n_slabs)
-    assert counts_new.max() <= cap, (
-        f"halo-path bucket occupancy {counts_new.max()} exceeds cap {cap}"
-    )
-
-    # the round-4 behavior (padding pinned at lx=0, unscaled cap) overflowed:
-    # keep proof that this test bites
-    cap_old = _bucket_cap(n, n_slabs)
-    counts_old = np.bincount(lx_old // kw, minlength=n_slabs)
-    assert counts_old.max() > cap_old
-
-
 def test_collective_bytes_pinned(mesh8):
-    """Comm-volume accounting (round-4 VERDICT item 5): the halo spread's
+    """Comm-volume accounting: the halo spread's
     all_to_all must move exactly its designed (6+T)-scalar payload per
     redistributed row (u0 + alpha + base — never the 216-value stencil or
     the mesh), and the pencil rfft's single transpose must move exactly
